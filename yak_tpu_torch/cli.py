@@ -1,0 +1,176 @@
+"""Command-line interface: `python -m yak_tpu_torch <command> [options]`.
+
+Port of `yak_tpu/cli.py` for `count` (without `-b`, k <= 31) and
+`version`, with the same options, messages and footer.  Every other
+command of the reference CLI exits 1 with "not yet ported".
+
+The device is chosen explicitly: `--device cuda|cuda:N|cpu` anywhere
+on the command line, else `cuda`.  When CUDA is asked for and absent,
+the CLI raises; it never falls back to the CPU on its own.
+"""
+
+import resource
+import sys
+import time
+
+import torch
+
+from yak_tpu_torch import __version__
+
+_NOT_PORTED = ("recount", "cntasm", "subtract", "isec", "print", "qv",
+               "triobin", "trioeval", "inspect", "chkerr", "sexchr",
+               "groupxy")
+
+
+def _parse_num(s):
+    """k/m/g size suffixes (mm_parse_num, yak-priv.h:75-84)."""
+    mult = 1.0
+    if s and s[-1] in "kKmMgG":
+        mult = {"k": 1e3, "m": 1e6, "g": 1e9}[s[-1].lower()]
+        s = s[:-1]
+    return int(float(s) * mult + 0.499)
+
+
+def _getopt(argv, spec):
+    """Tiny getopt (ketopt-style): spec maps letter -> bool(has_arg).
+    Returns (opts dict, positional args)."""
+    opts, pos, i = {}, [], 0
+    while i < len(argv):
+        a = argv[i]
+        if a.startswith("-") and len(a) > 1 and not a[1].isdigit():
+            letter = a[1]
+            if letter not in spec:
+                print(f"unknown option: -{letter}", file=sys.stderr)
+                sys.exit(1)
+            if spec[letter]:
+                arg = a[2:] if len(a) > 2 else argv[i + 1]
+                if len(a) <= 2:
+                    i += 1
+                opts[letter] = arg
+            else:
+                opts[letter] = True
+        else:
+            pos.append(a)
+        i += 1
+    return opts, pos
+
+
+def _usage(lines):
+    print("\n".join(lines), file=sys.stderr)
+    return 1
+
+
+def split_device(argv):
+    """Remove `--device X` / `--device=X` from argv; returns (device name
+    or None, remaining argv)."""
+    rest, dev, i = [], None, 0
+    while i < len(argv):
+        a = argv[i]
+        if a == "--device":
+            if i + 1 >= len(argv):
+                raise ValueError("--device needs a value (cuda or cpu)")
+            dev = argv[i + 1]
+            i += 2
+            continue
+        if a.startswith("--device="):
+            dev = a.split("=", 1)[1]
+        else:
+            rest.append(a)
+        i += 1
+    return dev, rest
+
+
+def resolve_device(name):
+    """torch.device for a device name; CUDA must be present when asked
+    for."""
+    dev = torch.device(name)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device '{name}' asked for but CUDA is not available; "
+                f"pass --device cpu to run on the CPU")
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device '{name}' (cuda or cpu)")
+    return dev
+
+
+def main_count(argv, device):
+    from yak_tpu_torch.models.count import CountOpts, count
+    # -b is parsed so that the count reports it as not yet ported
+    o, pos = _getopt(argv, {"k": 1, "p": 1, "K": 1, "t": 1, "b": 1,
+                            "o": 1})
+    opt = CountOpts(device=str(device))
+    if "k" in o: opt.k = int(o["k"])
+    if "p" in o: opt.pre = int(o["p"])
+    if "K" in o: opt.chunk_size = _parse_num(o["K"])
+    if "t" in o: opt.n_thread = int(o["t"])
+    if "b" in o: opt.bf_shift = int(o["b"])
+    fn_out = o.get("o")
+    if not pos:
+        return _usage(["Usage: yak_tpu_torch count [options] <in.fa> "
+                       "[in.fa]",
+                       "Options:",
+                       f"  -k INT     k-mer size [{opt.k}]",
+                       f"  -p INT     prefix length [{opt.pre}]",
+                       "  -t INT     number of worker threads [4]",
+                       "  -o FILE    dump the count hash table to FILE []",
+                       "  -K INT     chunk size [100m]",
+                       "  --device D cuda, cuda:N or cpu [cuda]"])
+    if opt.pre < 10:
+        print("ERROR: -p should be at least 10", file=sys.stderr)
+        return 1
+    if opt.k >= 64:
+        print("ERROR: -k must be smaller than 64", file=sys.stderr)
+        return 1
+    if opt.k >= 32:
+        print("WARNING: counts are inexact if -k is greater than 31",
+              file=sys.stderr)
+    h = count(pos, opt)
+    if fn_out:
+        h.dump(fn_out)
+    return 0
+
+
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else argv
+    t0 = time.time()
+    dev_name, argv = split_device(argv)
+    if not argv:
+        print("Usage: yak_tpu_torch <command> <argument>", file=sys.stderr)
+        print("Command:", file=sys.stderr)
+        for c in ("count", "version"):
+            print(f"  {c}", file=sys.stderr)
+        return 1
+    cmd = argv[0]
+    if cmd == "version":
+        print(__version__)
+        return 0
+    if cmd in _NOT_PORTED:
+        print(f"[E::main] command '{cmd}' is not yet ported to "
+              f"yak_tpu_torch (see ROADMAP.md)", file=sys.stderr)
+        return 1
+    if cmd != "count":
+        print("[E::main] unknown command", file=sys.stderr)
+        return 1
+    device = resolve_device(dev_name or "cuda")
+    try:
+        ret = main_count(argv[1:], device)
+    except FileNotFoundError as e:
+        # reference-style clean failure (main.c:82,267)
+        print(f"ERROR: failed to open file '{e.filename or e}'",
+              file=sys.stderr)
+        return 1
+    except (OSError, ValueError, NotImplementedError) as e:
+        print(f"ERROR: {e}", file=sys.stderr)
+        return 1
+    if ret == 0:
+        ru = resource.getrusage(resource.RUSAGE_SELF)
+        cpu = ru.ru_utime + ru.ru_stime
+        print(f"[M::main] Version: {__version__}", file=sys.stderr)
+        print("[M::main] CMD: yak_tpu_torch " + " ".join(argv),
+              file=sys.stderr)
+        print(f"[M::main] Real time: {time.time() - t0:.3f} sec; "
+              f"CPU: {cpu:.3f} sec; "
+              f"Peak RSS: {ru.ru_maxrss / 1024.0 / 1024.0:.3f} GB",
+              file=sys.stderr)
+    return ret

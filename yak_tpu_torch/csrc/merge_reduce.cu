@@ -1,0 +1,507 @@
+// Merge-reduce of the count path, written for Hopper (sm_90a).
+//
+// Replaces the TPU kernel yak_tpu/ops/pallas_merge.py::_make_kernel in
+// count mode (unit batch weights, create or increment-only).  It folds a
+// sorted batch of k-mer hashes into the sorted count table:
+//
+//   table : int64 keys [0, size) ascending and unique, int32 counts;
+//   batch : int64 keys ascending, invalid lanes = INT64_MAX at the tail;
+//   out   : for every key in either stream, count = min(table count +
+//           number of batch lanes, 1023), ascending; with create = 0,
+//           keys absent from the table are dropped; n_new counts the
+//           created keys; new_size is counted before truncation, so
+//           new_size > cap is the overflow flag.  Writes stop at cap.
+//
+// This is exactly sorttable.merge_batch_impl in ADD mode
+// (yak_tpu/ops/sorttable.py:90-171) with unit batch weights.
+//
+// What bounds it on the H100: device-memory bytes.  A fold reads about
+// 12 B x cap (table keys + counts) + 8 B x B (batch keys) and writes about
+// 12 B x (cap + B) at most; the arithmetic per lane is a few compares.
+//
+// Design.  The TPU kernel runs its grid in order and carries the open
+// key run's (key, partial sum) and the emitted total in SMEM from one
+// grid step to the next, closing the last run with a trailing all-pad
+// tile (pallas_merge.py:21-27, 293-312, 342-357, 390-399).  On Hopper the
+// blocks run in parallel and in no order, and one key run can span many
+// tiles (a key repeated 17,000 times spans 17 tiles here), so those
+// carries become a second pass over per-tile aggregates:
+//
+//   1. k_partition: merge-path diagonal search, one thread per tile of
+//      TILE merged lanes (table first on equal keys);
+//   2. k_tile_aggregate: each block merges its table and batch slices in
+//      shared memory (each lane finds its rank in the other slice by
+//      binary search), finds run heads and ends (the lanes across the
+//      tile edge are read from the inputs), and scans the run sums and
+//      table presence within the tile; it writes the tile's segmented
+//      aggregate and its run ends that need no carry;
+//   3. k_scan_tiles: one block scans the tile aggregates: the open run's
+//      partial sum and presence carried into every tile, the survivors
+//      per tile, their output offsets, new_size and n_new;
+//   4. k_scatter: each block merges and scans its tile again, adds the
+//      carry to the lanes of the run it continues, and writes its
+//      survivors at their offsets, stopping at cap.
+//
+// The merged stream is rebuilt in pass 4 rather than stored by pass 2:
+// re-reading the two input slices (12 B a lane) costs fewer bytes than
+// writing and re-reading a merged stream (key, weight, flag).
+//
+// What the TPU kernel needed and this one does not:
+// - a stream bit in the packed key (hash << 1 | stream) to make its tile
+//   sort tie-free (pallas_merge.py:266-276): the merge path here knows
+//   which stream each lane came from;
+// - table presence packed into bit 27 of the summed value
+//   (pallas_merge.py:29-32): presence is its own flag; saturation at
+//   1023 applies after the full run sum, never per tile;
+// - output planes longer than cap, truncated by a finalize pass
+//   (countstep.py:947-958): writes here stop at cap and the true
+//   new_size is reported, so the caller's one-step-late replay grows the
+//   table and re-runs the fold;
+// - the x64 flag flips, the 1024-aligned pending-block DMA and the
+//   smoke gates of the TPU toolchain.
+//
+// Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
+//        -Xcompiler -fPIC (yak_tpu_torch/ops/cuda_build.py); bound with
+//        ctypes (yak_tpu_torch/ops/merge.py).
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int TILE = 1024;          // merged lanes per block
+constexpr int NT = 256;             // threads per tile block
+constexpr int IPT = TILE / NT;      // consecutive lanes per thread
+constexpr int SCAN_NT = 1024;       // threads of the one scan block
+constexpr long long KINF = 0x7fffffffffffffffLL;
+constexpr int MAX_COUNT = 1023;
+constexpr unsigned FULL = 0xffffffffu;
+
+// Segmented-scan element: f = a run head lies inside, s = sum since the
+// last head, p = table presence since the last head.
+struct Seg {
+    int f;
+    int s;
+    int p;
+};
+
+__device__ __forceinline__ Seg seg_identity() { return Seg{0, 0, 0}; }
+
+__device__ __forceinline__ Seg seg_combine(Seg a, Seg b) {
+    Seg r;
+    r.f = a.f | b.f;
+    r.s = b.f ? b.s : a.s + b.s;
+    r.p = b.f ? b.p : (a.p | b.p);
+    return r;
+}
+
+__device__ __forceinline__ Seg shfl_up_seg(Seg v, int off) {
+    Seg r;
+    r.f = __shfl_up_sync(FULL, v.f, off);
+    r.s = __shfl_up_sync(FULL, v.s, off);
+    r.p = __shfl_up_sync(FULL, v.p, off);
+    return r;
+}
+
+// Exclusive segmented scan over the block; *total gets the whole
+// block's aggregate.  warp_tot holds NTH/32 entries of shared memory.
+template <int NTH>
+__device__ Seg block_seg_scan_excl(Seg v, Seg* warp_tot, Seg* total) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    Seg inc = v;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+        Seg up = shfl_up_seg(inc, off);
+        if (lane >= off) inc = seg_combine(up, inc);
+    }
+    Seg ex = shfl_up_seg(inc, 1);
+    if (lane == 0) ex = seg_identity();
+    if (lane == 31) warp_tot[warp] = inc;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        Seg run = seg_identity();
+        for (int w = 0; w < NTH / 32; ++w) {
+            Seg tw = warp_tot[w];
+            warp_tot[w] = run;
+            run = seg_combine(run, tw);
+        }
+        *total = run;
+    }
+    __syncthreads();
+    Seg res = seg_combine(warp_tot[warp], ex);
+    __syncthreads();
+    return res;
+}
+
+// Exclusive sum over the block; *total gets the block's sum.
+template <int NTH>
+__device__ long long block_sum_excl(long long v, long long* warp_tot,
+                                    long long* total) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    long long inc = v;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+        long long up = __shfl_up_sync(FULL, inc, off);
+        if (lane >= off) inc += up;
+    }
+    if (lane == 31) warp_tot[warp] = inc;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        long long run = 0;
+        for (int w = 0; w < NTH / 32; ++w) {
+            long long tw = warp_tot[w];
+            warp_tot[w] = run;
+            run += tw;
+        }
+        *total = run;
+    }
+    __syncthreads();
+    long long res = warp_tot[warp] + inc - v;
+    __syncthreads();
+    return res;
+}
+
+// First index in a[0, n) whose value is >= v (a ascending).
+__device__ __forceinline__ long long lower_bound_g(const long long* a,
+                                                   long long n,
+                                                   long long v) {
+    long long lo = 0, hi = n;
+    while (lo < hi) {
+        long long mid = (lo + hi) >> 1;
+        if (a[mid] < v) lo = mid + 1; else hi = mid;
+    }
+    return lo;
+}
+
+__device__ __forceinline__ int lower_bound_s(const long long* a, int n,
+                                             long long v) {
+    int lo = 0, hi = n;
+    while (lo < hi) {
+        int mid = (lo + hi) >> 1;
+        if (a[mid] < v) lo = mid + 1; else hi = mid;
+    }
+    return lo;
+}
+
+__device__ __forceinline__ int upper_bound_s(const long long* a, int n,
+                                             long long v) {
+    int lo = 0, hi = n;
+    while (lo < hi) {
+        int mid = (lo + hi) >> 1;
+        if (a[mid] <= v) lo = mid + 1; else hi = mid;
+    }
+    return lo;
+}
+
+__device__ __forceinline__ long long live_size(const int* size_ptr,
+                                               long long cap) {
+    long long s = *size_ptr;
+    return s < 0 ? 0 : (s > cap ? cap : s);
+}
+
+struct TileSmem {
+    long long sa[TILE];       // table slice
+    long long sb[TILE];       // batch slice
+    long long mk[TILE];       // merged keys
+    int sc[TILE];             // table slice counts
+    int mw[TILE];             // merged weights
+    unsigned char mt[TILE];   // merged lane came from the table
+    Seg warp_seg[NT / 32];
+    long long warp_sum[NT / 32];
+    Seg tile_total;
+    long long sum_total;
+    int cnt[3];
+};
+
+// One tile's merged lanes, IPT consecutive lanes per thread, after the
+// within-tile segmented scan.  `cont` marks lanes of the run the tile
+// continues from earlier tiles: their sum and presence still lack the
+// carry.
+struct TileLanes {
+    long long key[IPT];
+    int sum[IPT];
+    bool pres[IPT];
+    bool end[IPT];
+    bool cont[IPT];
+    bool valid[IPT];
+};
+
+__device__ void merge_tile(long long t, const long long* A, const int* Acnt,
+                           long long size, const long long* B, long long nb,
+                           const long long* part, TileSmem& sm,
+                           TileLanes& L) {
+    const long long N = size + nb;
+    const long long d0 = min(t * TILE, N);
+    const long long d1 = min((t + 1) * TILE, N);
+    const long long a0 = part[t], a1 = part[t + 1];
+    const long long b0 = d0 - a0, b1 = d1 - a1;
+    const int na = (int)(a1 - a0), nbt = (int)(b1 - b0);
+    const int n = (int)(d1 - d0);
+
+    for (int i = threadIdx.x; i < na; i += NT) {
+        sm.sa[i] = A[a0 + i];
+        sm.sc[i] = Acnt[a0 + i];
+    }
+    for (int j = threadIdx.x; j < nbt; j += NT) sm.sb[j] = B[b0 + j];
+    __syncthreads();
+    // merged rank = own index + rank in the other slice; equal keys put
+    // the table lane first, as the partition did
+    for (int i = threadIdx.x; i < na; i += NT) {
+        long long v = sm.sa[i];
+        int pos = i + lower_bound_s(sm.sb, nbt, v);
+        sm.mk[pos] = v;
+        sm.mw[pos] = sm.sc[i];
+        sm.mt[pos] = 1;
+    }
+    for (int j = threadIdx.x; j < nbt; j += NT) {
+        long long v = sm.sb[j];
+        int pos = j + upper_bound_s(sm.sa, na, v);
+        sm.mk[pos] = v;
+        sm.mw[pos] = 1;
+        sm.mt[pos] = 0;
+    }
+    __syncthreads();
+
+    // the merged lanes just before and just after the tile (-1: none;
+    // real keys are >= 0)
+    long long prev = -1, next = -1;
+    if (d0 > 0) {
+        long long pa = a0 > 0 ? A[a0 - 1] : -1;
+        long long pb = b0 > 0 ? B[b0 - 1] : -1;
+        prev = pa > pb ? pa : pb;
+    }
+    if (d1 < N) {
+        long long qa = a1 < size ? A[a1] : KINF;
+        long long qb = b1 < nb ? B[b1] : KINF;
+        next = qa < qb ? qa : qb;
+    }
+
+    // thread-local segmented inclusive scan over IPT consecutive lanes
+    const int base = threadIdx.x * IPT;
+    Seg agg = seg_identity();
+    bool head_seen[IPT];
+#pragma unroll
+    for (int q = 0; q < IPT; ++q) {
+        const int p = base + q;
+        const bool valid = p < n;
+        L.valid[q] = valid;
+        long long key = -1;
+        bool head = false, end = false;
+        int w = 0, tab = 0;
+        if (valid) {
+            key = sm.mk[p];
+            w = sm.mw[p];
+            tab = sm.mt[p];
+            const long long pk = p > 0 ? sm.mk[p - 1] : prev;
+            const long long nk = p < n - 1 ? sm.mk[p + 1] : next;
+            head = key != pk;
+            end = key != nk;
+        }
+        agg = seg_combine(agg, Seg{head ? 1 : 0, w, tab});
+        L.key[q] = key;
+        L.end[q] = end;
+        L.sum[q] = agg.s;
+        L.pres[q] = agg.p != 0;
+        head_seen[q] = agg.f != 0;
+    }
+
+    const Seg ex = block_seg_scan_excl<NT>(agg, sm.warp_seg, &sm.tile_total);
+#pragma unroll
+    for (int q = 0; q < IPT; ++q) {
+        if (!head_seen[q]) {
+            L.sum[q] += ex.s;
+            L.pres[q] = L.pres[q] || ex.p != 0;
+        }
+        L.cont[q] = !head_seen[q] && ex.f == 0;
+    }
+}
+
+__global__ void k_partition(const long long* __restrict__ A,
+                            const int* __restrict__ size_ptr, long long cap,
+                            const long long* __restrict__ B, long long nbatch,
+                            long long ntiles, long long* __restrict__ part,
+                            long long* __restrict__ nb_out) {
+    const long long t = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+    if (t > ntiles) return;
+    const long long size = live_size(size_ptr, cap);
+    const long long nb = lower_bound_g(B, nbatch, KINF);
+    const long long N = size + nb;
+    const long long d = min(t * TILE, N);
+    long long lo = d - nb > 0 ? d - nb : 0;
+    long long hi = d < size ? d : size;
+    while (lo < hi) {
+        const long long mid = (lo + hi) >> 1;
+        if (A[mid] <= B[d - 1 - mid]) lo = mid + 1; else hi = mid;
+    }
+    part[t] = lo;
+    if (t == 0) *nb_out = nb;
+}
+
+// Per tile: seg[3t..3t+2] = segmented aggregate (f, s, p);
+// cnt[3t] = run ends kept without a carry, cnt[3t+1] = of those, created
+// keys, cnt[3t+2] = 1 when the continued run ends in this tile.
+__global__ void __launch_bounds__(NT)
+k_tile_aggregate(const long long* __restrict__ A, const int* __restrict__ Acnt,
+                 const int* __restrict__ size_ptr, long long cap,
+                 const long long* __restrict__ B,
+                 const long long* __restrict__ nb_ptr,
+                 const long long* __restrict__ part, int create,
+                 int* __restrict__ seg, int* __restrict__ cnt) {
+    __shared__ TileSmem sm;
+    const long long t = blockIdx.x;
+    if (threadIdx.x < 3) sm.cnt[threadIdx.x] = 0;
+    TileLanes L;
+    merge_tile(t, A, Acnt, live_size(size_ptr, cap), B, *nb_ptr, part, sm, L);
+    int kept = 0, created = 0, cont_end = 0;
+#pragma unroll
+    for (int q = 0; q < IPT; ++q) {
+        if (!L.valid[q] || !L.end[q]) continue;
+        if (L.cont[q]) {
+            cont_end = 1;
+        } else if (create || L.pres[q]) {
+            ++kept;
+            if (!L.pres[q]) ++created;
+        }
+    }
+    if (kept) atomicAdd(&sm.cnt[0], kept);
+    if (created) atomicAdd(&sm.cnt[1], created);
+    if (cont_end) atomicOr(&sm.cnt[2], 1);
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        seg[3 * t] = sm.tile_total.f;
+        seg[3 * t + 1] = sm.tile_total.s;
+        seg[3 * t + 2] = sm.tile_total.p;
+        cnt[3 * t] = sm.cnt[0];
+        cnt[3 * t + 1] = sm.cnt[1];
+        cnt[3 * t + 2] = sm.cnt[2];
+    }
+}
+
+// One block: the carry into every tile (carry[2t] = sum, carry[2t+1] =
+// presence), the output offset of every tile's survivors, new_size and
+// n_new.
+__global__ void __launch_bounds__(SCAN_NT)
+k_scan_tiles(long long ntiles, int create, const int* __restrict__ seg,
+             const int* __restrict__ cnt, int* __restrict__ carry,
+             long long* __restrict__ out_off, int* __restrict__ new_size,
+             int* __restrict__ n_new) {
+    __shared__ Seg warp_seg[SCAN_NT / 32];
+    __shared__ long long warp_sum[SCAN_NT / 32];
+    __shared__ Seg seg_total;
+    __shared__ long long sum_total;
+    const long long per = (ntiles + SCAN_NT - 1) / SCAN_NT;
+    const long long t0 = min(threadIdx.x * per, ntiles);
+    const long long t1 = min(t0 + per, ntiles);
+
+    Seg agg = seg_identity();
+    for (long long t = t0; t < t1; ++t)
+        agg = seg_combine(agg, Seg{seg[3 * t], seg[3 * t + 1], seg[3 * t + 2]});
+    Seg run = block_seg_scan_excl<SCAN_NT>(agg, warp_seg, &seg_total);
+
+    long long kept = 0, created = 0;
+    for (long long t = t0; t < t1; ++t) {
+        carry[2 * t] = run.s;
+        carry[2 * t + 1] = run.p;
+        long long k = cnt[3 * t];
+        long long c = cnt[3 * t + 1];
+        if (cnt[3 * t + 2]) {
+            // the run continued from earlier tiles ends here: its
+            // presence is the carried one
+            if (create || run.p) ++k;
+            if (create && !run.p) ++c;
+        }
+        out_off[t] = k;
+        kept += k;
+        created += c;
+        run = seg_combine(run, Seg{seg[3 * t], seg[3 * t + 1], seg[3 * t + 2]});
+    }
+    long long off = block_sum_excl<SCAN_NT>(kept, warp_sum, &sum_total);
+    for (long long t = t0; t < t1; ++t) {
+        const long long k = out_off[t];
+        out_off[t] = off;
+        off += k;
+    }
+    if (threadIdx.x == 0) *new_size = (int)sum_total;
+    block_sum_excl<SCAN_NT>(created, warp_sum, &sum_total);
+    if (threadIdx.x == 0) *n_new = (int)sum_total;
+}
+
+__global__ void __launch_bounds__(NT)
+k_scatter(const long long* __restrict__ A, const int* __restrict__ Acnt,
+          const int* __restrict__ size_ptr, long long cap,
+          const long long* __restrict__ B,
+          const long long* __restrict__ nb_ptr,
+          const long long* __restrict__ part, int create,
+          const int* __restrict__ carry,
+          const long long* __restrict__ out_off,
+          long long* __restrict__ okeys, int* __restrict__ ocnt) {
+    __shared__ TileSmem sm;
+    const long long t = blockIdx.x;
+    TileLanes L;
+    merge_tile(t, A, Acnt, live_size(size_ptr, cap), B, *nb_ptr, part, sm, L);
+    const int c_sum = carry[2 * t];
+    const bool c_pres = carry[2 * t + 1] != 0;
+    bool keep[IPT];
+    int mine = 0;
+#pragma unroll
+    for (int q = 0; q < IPT; ++q) {
+        if (L.cont[q]) {
+            L.sum[q] += c_sum;
+            L.pres[q] = L.pres[q] || c_pres;
+        }
+        keep[q] = L.valid[q] && L.end[q] && (create || L.pres[q]);
+        mine += keep[q] ? 1 : 0;
+    }
+    long long pos = out_off[t] +
+                    block_sum_excl<NT>(mine, sm.warp_sum, &sm.sum_total);
+#pragma unroll
+    for (int q = 0; q < IPT; ++q) {
+        if (!keep[q]) continue;
+        if (pos < cap) {
+            okeys[pos] = L.key[q];
+            ocnt[pos] = L.sum[q] < MAX_COUNT ? L.sum[q] : MAX_COUNT;
+        }
+        ++pos;
+    }
+}
+
+}  // namespace
+
+extern "C" {
+
+int yak_merge_reduce_tile(void) { return TILE; }
+
+const char* yak_cuda_error_string(int err) {
+    return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// Scratch (all device memory, from the caller): part[ntiles + 1],
+// nb[1], seg[3 * ntiles], cnt[3 * ntiles], carry[2 * ntiles],
+// out_off[ntiles], with ntiles = ceil((cap + nbatch) / TILE) >= 1.
+// Returns the first CUDA error of the launches (0 = none).
+int yak_merge_reduce(const long long* tkeys, const int* tcnt,
+                     const int* size, long long cap, const long long* bkeys,
+                     long long nbatch, int create, long long ntiles,
+                     long long* part, long long* nb, int* seg, int* cnt,
+                     int* carry, long long* out_off, long long* okeys,
+                     int* ocnt, int* new_size, int* n_new, void* stream) {
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const long long pblocks = (ntiles + 1 + 255) / 256;
+    k_partition<<<(unsigned)pblocks, 256, 0, s>>>(tkeys, size, cap, bkeys,
+                                                  nbatch, ntiles, part, nb);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    k_tile_aggregate<<<(unsigned)ntiles, NT, 0, s>>>(
+        tkeys, tcnt, size, cap, bkeys, nb, part, create, seg, cnt);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    k_scan_tiles<<<1, SCAN_NT, 0, s>>>(ntiles, create, seg, cnt, carry,
+                                       out_off, new_size, n_new);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    k_scatter<<<(unsigned)ntiles, NT, 0, s>>>(tkeys, tcnt, size, cap, bkeys,
+                                              nb, part, create, carry,
+                                              out_off, okeys, ocnt);
+    return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -1,0 +1,133 @@
+"""The merge-reduce of the count path: fold a sorted k-mer batch into the
+sorted count table.
+
+`merge_reduce` is the port of the TPU kernel
+`yak_tpu/ops/pallas_merge.py::_make_kernel` in count mode.  For CUDA
+tensors it launches the hand-written Hopper kernel
+`yak_tpu_torch/csrc/merge_reduce.cu` (see the note at its top for the
+design); for CPU tensors it runs `merge_reduce_plain`, the plain torch
+version of the same contract.  There is no fallback between the two: a
+CUDA tensor launches the kernel or raises.
+
+Contract (sorttable.merge_batch_impl in ADD mode with unit weights,
+yak_tpu/ops/sorttable.py:90-171):
+
+  tkeys int64 [cap]   table keys, ascending and unique in [0, size)
+  tcnt  int32 [cap]   table counts
+  size  int32 []      live table length
+  bkeys int64 [B]     batch keys, ascending; invalid lanes = INT64_MAX
+  create              False: keys absent from the table are dropped
+
+returns (okeys int64 [cap], ocnt int32 [cap], new_size int32 [],
+n_new int32 []): every surviving key once, ascending, with count
+min(table count + batch lanes, 1023).  new_size is counted before
+truncation to cap, so new_size > cap is the overflow flag; lanes beyond
+min(new_size, cap) are unspecified.
+"""
+
+import ctypes
+
+import torch
+
+from yak_tpu_torch.ops import sorttable as st
+from yak_tpu_torch.ops.keys import INT64_MAX
+
+
+def _check(tkeys, tcnt, size, bkeys):
+    for name, t, dt in (("tkeys", tkeys, torch.int64),
+                        ("tcnt", tcnt, torch.int32),
+                        ("size", size, torch.int32),
+                        ("bkeys", bkeys, torch.int64)):
+        if t.dtype != dt:
+            raise TypeError(f"merge_reduce: {name} must be {dt}, "
+                            f"got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"merge_reduce: {name} must be contiguous")
+        if t.device != tkeys.device:
+            raise ValueError(f"merge_reduce: {name} is on {t.device}, "
+                             f"tkeys on {tkeys.device}")
+    if tkeys.dim() != 1 or bkeys.dim() != 1 or tcnt.shape != tkeys.shape:
+        raise ValueError("merge_reduce: tkeys/tcnt must be 1-D of one "
+                         "length and bkeys 1-D")
+    if size.numel() != 1:
+        raise ValueError("merge_reduce: size must hold one value")
+    if tkeys.numel() == 0:
+        raise ValueError("merge_reduce: the table needs capacity >= 1")
+
+
+def merge_reduce(tkeys, tcnt, size, bkeys, create=True):
+    """Fold the sorted batch `bkeys` into the table (contract above)."""
+    _check(tkeys, tcnt, size, bkeys)
+    if tkeys.device.type == "cpu":
+        return merge_reduce_plain(tkeys, tcnt, size, bkeys, create)
+    if tkeys.device.type != "cuda":
+        raise ValueError(f"merge_reduce: no kernel for device "
+                         f"{tkeys.device}")
+    return _launch(tkeys, tcnt, size, bkeys, create)
+
+
+merge_reduce.launches = 0    # kernel launches, counted in _launch
+
+
+def _library():
+    from yak_tpu_torch.ops import cuda_build
+
+    lib, _secs = cuda_build.load("merge_reduce")
+    p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    lib.yak_merge_reduce.argtypes = [
+        p, p, p, i64, p, i64, i32, i64,   # inputs, create, ntiles
+        p, p, p, p, p, p,                 # scratch
+        p, p, p, p,                       # outputs
+        p]                                # stream
+    lib.yak_merge_reduce.restype = i32
+    lib.yak_merge_reduce_tile.argtypes = []
+    lib.yak_merge_reduce_tile.restype = i32
+    lib.yak_cuda_error_string.argtypes = [i32]
+    lib.yak_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _launch(tkeys, tcnt, size, bkeys, create):
+    lib = _library()
+    dev = tkeys.device
+    cap, nbatch = tkeys.numel(), bkeys.numel()
+    tile = lib.yak_merge_reduce_tile()
+    ntiles = max(1, -(-(cap + nbatch) // tile))
+
+    def empty(n, dt):
+        return torch.empty(n, dtype=dt, device=dev)
+
+    part = empty(ntiles + 1, torch.int64)
+    nb = empty(1, torch.int64)
+    seg = empty(3 * ntiles, torch.int32)
+    cnt = empty(3 * ntiles, torch.int32)
+    carry = empty(2 * ntiles, torch.int32)
+    out_off = empty(ntiles, torch.int64)
+    okeys = empty(cap, torch.int64)
+    ocnt = empty(cap, torch.int32)
+    new_size = torch.empty((), dtype=torch.int32, device=dev)
+    n_new = torch.empty((), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.yak_merge_reduce(
+            tkeys.data_ptr(), tcnt.data_ptr(), size.data_ptr(), cap,
+            bkeys.data_ptr(), nbatch, int(bool(create)), ntiles,
+            part.data_ptr(), nb.data_ptr(), seg.data_ptr(), cnt.data_ptr(),
+            carry.data_ptr(), out_off.data_ptr(), okeys.data_ptr(),
+            ocnt.data_ptr(), new_size.data_ptr(), n_new.data_ptr(), stream)
+    if err != 0:
+        msg = lib.yak_cuda_error_string(err).decode()
+        raise RuntimeError(f"merge_reduce kernel launch failed: {msg}")
+    merge_reduce.launches += 1
+    return okeys, ocnt, new_size, n_new
+
+
+def merge_reduce_plain(tkeys, tcnt, size, bkeys, create=True):
+    """The plain torch version of the kernel's contract: the sort-merge
+    engine (sorttable.merge_batch_core) with unit weights and the
+    INT64_MAX lanes invalid.  Data-independent shapes throughout, so it
+    runs without a host sync on any device."""
+    okeys, ocnt, new_size, n_new = st.merge_batch_core(
+        tkeys, tcnt, size, bkeys, torch.ones_like(bkeys, dtype=torch.int32),
+        bkeys != INT64_MAX, create)
+    return okeys, ocnt, new_size, n_new.to(torch.int32)

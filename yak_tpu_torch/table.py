@@ -1,0 +1,335 @@
+"""KmerTable: the counting table of the count path.
+
+Port of `yak_tpu/table.py` for `count` without `-b` (k <= 31): the
+sorted (hash, count) table lives on its device between folds; host code
+chunks are grouped and folded in one step each (extract + sort +
+merge-reduce, `ops/countstep.py`); the overflow flag of a fold is read
+one fold late, and an overflowed fold is replayed against the preserved
+pre-fold table after doubling its capacity.  Reads (items, hist, shrink,
+dump) flush first.
+
+Not ported here: the Bloom filter (`-b`), the wide k >= 32 path,
+lookups, the table algebra and the OR-merge restore into an existing
+table (ROADMAP.md Queue 1).  The TPU package's transient-fault retry
+(`yak_tpu/table.py:493-502`) is deliberately absent: on the card it
+would hide a fault.
+"""
+
+import sys
+
+import numpy as np
+import torch
+
+from yak_tpu_torch import YAK_LOAD_ALL, YAK_MAX_COUNT
+from yak_tpu_torch.io import yakfmt
+from yak_tpu_torch.io.pack import detect_periodic, pack_planes, pack_planes2
+from yak_tpu_torch.ops import countstep
+from yak_tpu_torch.ops import sorttable as st
+from yak_tpu_torch.ops.keys import torch_to_u64, u32_to_torch, u64_to_torch
+
+
+def _log(msg):
+    print(f"[M::yak_tpu_torch] {msg}", file=sys.stderr)
+
+
+class KmerTable:
+    """Deferred-merge note: code chunks accumulate on the host and fold
+    into the sorted table in groups, so duplicates across a whole group
+    coalesce in one merge; saturating counts are unaffected because
+    min(c + m1 + m2, 1023) == min(min(c + m1, 1023) + m2, 1023).
+
+    `device` is required: the table and every fold live there.  A CUDA
+    device runs the hand-written merge-reduce kernel, the CPU its plain
+    torch version.  `phase_hook`, when set, is called with the name of
+    each fold phase as it is queued ("start", "h2d", "extract", "sort",
+    "merge", "finalize"), for per-phase timing."""
+
+    def __init__(self, k, pre=10, cap_log2=16, flush_lanes=None,
+                 cap_hinted=None, *, device):
+        if pre < 10:
+            raise ValueError("pre must be at least YAK_COUNTER_BITS (10)")
+        if not 1 <= k <= 31:
+            raise NotImplementedError(
+                f"k={k}: the port counts k <= 31 only; k >= 32 (the "
+                f"hash_long wide path) is ROADMAP.md Queue 1, 'k >= 32'")
+        self.k = k
+        self.pre = pre
+        self.device = torch.device(device)
+        self.flush_lanes = flush_lanes  # None = max(2^23, cap)
+        # explicit capacity hint (-K): skip the group-size growth prior
+        self._cap_hinted = cap_log2 > 16 if cap_hinted is None \
+            else cap_hinted
+        self.keys, self.cnt, self.size = st.make_table(1 << cap_log2,
+                                                       self.device)
+        self._tot = 0          # host mirror of size (settled folds)
+        self._pend = []        # deferred (h, valid) hash batches
+        self._pend_lanes = 0
+        self._pend_codes = []  # deferred host code chunks (count path)
+        self._pend_create = True
+        # one-step-late overflow bookkeeping: (pre-fold state, fold
+        # input, device overflow flag)
+        self._last_step = None
+        self._group_g = None   # fixed chunks-per-group
+        self.phase_hook = None
+
+    @property
+    def cap(self):
+        return self.keys.shape[0]
+
+    @property
+    def tot(self):
+        self.flush()
+        self._tot = int(self.size)
+        return self._tot
+
+    def _mark(self, name):
+        if self.phase_hook is not None:
+            self.phase_hook(name)
+
+    def _ensure_capacity(self, need):
+        if need <= self.cap:
+            return
+        new_cap = self.cap
+        while new_cap < need:
+            new_cap *= 2
+        self.keys, self.cnt, self.size = st.grow(self.keys, self.cnt,
+                                                 self.size, new_cap)
+
+    # -- hot path -------------------------------------------------------
+
+    def insert_codes(self, codes, create_new=True, periodic=None):
+        """Queue one fixed-size flat base-code chunk (uint8, 4 = N/pad).
+
+        Chunks accumulate on the host, bit-plane packed here (2 bits a
+        base for the periodic fixed-length-read layout, 3 otherwise),
+        and fold into the table in groups.  All chunks of a table share
+        a length.  `periodic` skips the layout scan: a (R, w) tuple, or
+        False for known-general.
+        """
+        if self._pend_create != create_new:
+            self.flush()
+            self._pend_create = create_new
+        per = detect_periodic(codes) if periodic is None \
+            else (periodic or None)
+        if per is not None:
+            plo, phi = pack_planes2(codes)
+            self._pend_codes.append((codes, plo, phi, None, per))
+        else:
+            plo, phi, pnn = pack_planes(codes)
+            self._pend_codes.append((codes, plo, phi, pnn, None))
+        if self._group_g is None:
+            lanes = max(codes.shape[0] - self.k + 1, 1)
+            target = self.flush_lanes or max(1 << 23, self.cap)
+            self._group_g = max(1, -(-target // lanes))
+        if len(self._pend_codes) >= self._group_g:
+            self._fold_codes()
+
+    def _fold_codes(self):
+        """Fold pending code chunks, padded to the next power of two of
+        chunks (at most the full group size) with all-N chunks, so a
+        run sees at most log2(G) fold shapes."""
+        if not self._pend_codes:
+            return
+        self._mark("start")
+        group = self._pend_codes
+        self._pend_codes = []
+        g_full = self._group_g or len(group)
+        g = min(g_full, 1 << max(len(group) - 1, 0).bit_length())
+        L = group[0][0].shape[0]
+        n_pad = g - len(group)
+        pw = [e[4] for e in group]
+        periodic = (all(p is not None for p in pw)
+                    and len({p[0] for p in pw}) == 1)
+        dev = self.device
+        if periodic:
+            R = pw[0][0]
+            # all-pad fill chunks are trivially periodic with w=0
+            wvec = np.array([p[1] for p in pw] + [0] * n_pad, np.int32)
+            zw = np.zeros((n_pad, group[0][1].shape[1]), np.uint32)
+            plo = np.concatenate([e[1] for e in group] + [zw])
+            phi = np.concatenate([e[2] for e in group] + [zw])
+            carg = ("periodic", (u32_to_torch(plo, dev),
+                                 u32_to_torch(phi, dev),
+                                 torch.from_numpy(wvec).to(dev)), L, R)
+        else:
+            pl3s = [pack_planes(e[0]) if e[3] is None
+                    else (e[1], e[2], e[3]) for e in group]
+            W = pl3s[0][0].shape[1]
+            padw = np.zeros((n_pad, W), np.uint32)
+            padn = np.full((n_pad, W), 0xFFFFFFFF, np.uint32)
+            carg = ("planes", tuple(
+                u32_to_torch(np.concatenate(
+                    [p[j] for p in pl3s] + [padn if j == 2 else padw]), dev)
+                for j in range(3)), L)
+        self._mark("h2d")
+        self._check_last_step()  # one step late: previous fold settled
+        # capacity prior (only without an explicit cap hint): a group of
+        # L lanes creates at most L keys and typically ~L/2 distinct
+        lanes = g * max(L - self.k + 1, 1)
+        if not self._cap_hinted and self.cap * 2 < lanes:
+            need = 1 << max((lanes // 2 - 1).bit_length(), 14)
+            self.keys, self.cnt, self.size = st.grow(
+                self.keys, self.cnt, self.size, need)
+        prev = (self.keys, self.cnt, self.size)
+        ovf = self._run_step(carg, prev)
+        self._last_step = (prev, carg, ovf)
+
+    def _run_step(self, carg, state):
+        """Queue one fold against `state` (keys, cnt, size); leaves the
+        result in self.*; returns the device overflow flag."""
+        keys, cnt, size = state
+        self.keys, self.cnt, self.size, _n_new, ovf = countstep.count_step(
+            carg, self.k, keys, cnt, size, self._pend_create,
+            hook=self.phase_hook)
+        return ovf
+
+    def _check_last_step(self):
+        """Settle the previous fold: on overflow, double the preserved
+        pre-fold table and replay the fold (the step never writes into
+        its inputs, so that state is intact)."""
+        if self._last_step is None:
+            return
+        prev, carg, ovf = self._last_step
+        self._last_step = None
+        while bool(ovf):
+            keys, cnt, size = prev
+            prev = st.grow(keys, cnt, size, 2 * keys.shape[0])
+            # self.cap must reflect the grown table before the replay
+            self.keys, self.cnt, self.size = prev
+            ovf = self._run_step(carg, prev)
+
+    def insert_hashes(self, h, valid, create_new=True):
+        """Count a raw (duplicate-bearing) int64 hash batch into the table
+        (deferred; folded in at the next flush by the plain sort-merge,
+        as the JAX package folds it by its XLA merge_batch).
+        create_new=False increments existing keys only (htab.c:71-75)."""
+        if create_new != self._pend_create:
+            self.flush()
+            self._pend_create = create_new
+        self._pend.append((h.to(self.device), valid.to(self.device)))
+        self._pend_lanes += h.shape[0]
+        if self._pend_lanes >= (self.flush_lanes or max(1 << 23, self.cap)):
+            self.flush()
+
+    def flush(self):
+        """Fold all pending inserts into the table and settle overflow."""
+        self._fold_codes()
+        self._check_last_step()
+        if not self._pend:
+            return
+        h = torch.cat([p[0] for p in self._pend])
+        valid = torch.cat([p[1] for p in self._pend])
+        self._pend, self._pend_lanes = [], 0
+        if self._pend_create:
+            # the live size, not the host mirror: code folds since the
+            # last read leave _tot stale, and a short table would truncate
+            self._ensure_capacity(int(self.size) + h.shape[0])
+        add = torch.ones(h.shape, dtype=torch.int32, device=self.device)
+        self.keys, self.cnt, self.size, _, _ = st.merge_batch(
+            self.keys, self.cnt, self.size, h, add, valid,
+            create=self._pend_create)
+        self._tot = int(self.size)
+
+    # -- cold-path table ops --------------------------------------------
+
+    def items(self):
+        """Host (hash u64[N], count i32[N]) of live entries (sorted)."""
+        n = self.tot
+        return (torch_to_u64(self.keys[:n]).copy(),
+                self.cnt[:n].cpu().numpy().copy())
+
+    def hist(self):
+        """1024-bin count histogram (yak_ch_hist), int64."""
+        self.flush()
+        return st.hist(self.cnt, self.size).cpu().numpy()
+
+    def _map_counts(self, value):
+        lane = torch.arange(self.cap, device=self.device)
+        self.cnt = torch.where(lane < self.size,
+                               torch.full_like(self.cnt, value), self.cnt)
+
+    def clear_counts(self):
+        """Zero every live count (yak_ch_clear)."""
+        self.flush()
+        self._map_counts(0)
+
+    def set_counts(self, value):
+        """Set every live count to `value` (yak_ch_setcnt)."""
+        if not 0 <= value <= YAK_MAX_COUNT:
+            raise ValueError(f"count {value} outside [0, {YAK_MAX_COUNT}]")
+        self.flush()
+        self._map_counts(value)
+
+    def shrink(self, cmin, cmax):
+        """Keep entries with count in [cmin, cmax] (yak_ch_shrink)."""
+        cmax = cmax if cmin <= cmax <= YAK_MAX_COUNT else YAK_MAX_COUNT
+        self.flush()
+        keep = (self.cnt >= cmin) & (self.cnt <= cmax)
+        self.keys, self.cnt, self.size = st.compact_where(
+            self.keys, self.cnt, self.size, keep)
+        self._tot = int(self.size)
+
+    # -- state bridge and I/O -------------------------------------------
+
+    def _set_state(self, keys, cnt, n):
+        self._pend, self._pend_codes = [], []
+        self._pend_lanes, self._last_step = 0, None
+        self.keys = u64_to_torch(keys, self.device)
+        self.cnt = torch.tensor(np.asarray(cnt, np.int32),
+                                device=self.device)
+        self.size = torch.tensor(n, dtype=torch.int32, device=self.device)
+        self._tot = n
+
+    @classmethod
+    def from_arrays(cls, keys_u64, cnt_i32, size, k, pre, device):
+        """A table holding the state of a `yak_tpu` KmerTable: its keys
+        (uint64 [cap], ascending in [0, size)), counts (int32 [cap]) and
+        live size, as numpy."""
+        keys_u64 = np.asarray(keys_u64, np.uint64)
+        cap, size = len(keys_u64), int(size)
+        if len(cnt_i32) != cap or not 0 <= size <= cap:
+            raise ValueError("from_arrays: keys/cnt lengths differ or "
+                             "size exceeds them")
+        t = cls(k, pre, cap_log2=max(cap - 1, 1).bit_length(),
+                cap_hinted=True, device=device)
+        t._set_state(keys_u64, cnt_i32, size)
+        return t
+
+    def to_arrays(self):
+        """(keys uint64 [cap], cnt int32 [cap], size) as numpy, with the
+        lanes beyond size cleared to (0, -1) as in a fresh table."""
+        n = self.tot
+        keys = np.zeros(self.cap, np.uint64)
+        cnt = np.full(self.cap, -1, np.int32)
+        keys[:n] = torch_to_u64(self.keys[:n])
+        cnt[:n] = self.cnt[:n].cpu().numpy()
+        return keys, cnt, n
+
+    def _set_pairs(self, h_np, c_np):
+        """Replace contents with unique host (hash, count) pairs."""
+        order = np.argsort(h_np, kind="stable")
+        h_np, c_np = h_np[order], c_np[order]
+        n = len(h_np)
+        cap = max(self.cap, 1 << 14)
+        while cap < n:
+            cap *= 2
+        keys = np.zeros(cap, np.uint64)
+        cnts = np.full(cap, -1, np.int32)
+        keys[:n] = h_np
+        cnts[:n] = c_np
+        self._set_state(keys, cnts, n)
+
+    def dump(self, path):
+        h_np, c_np = self.items()
+        yakfmt.dump_yak(path, self.k, self.pre, h_np, c_np)
+        _log(f"dumped the hash table to file '{path}'")
+
+    @classmethod
+    def restore(cls, path, device, mode=YAK_LOAD_ALL, min_cnt=0, mid_cnt=0):
+        """Load a `.yak` file into a new table (yak_ch_restore_core
+        semantics with the load modes' value transforms)."""
+        k, pre, hashes, counts = yakfmt.restore_yak(path)
+        vals, keep = yakfmt.apply_load_mode(counts, mode, min_cnt, mid_cnt)
+        t = cls(k, pre, device=device)
+        t._set_pairs(hashes[keep], vals[keep].astype(np.int32))
+        return t
