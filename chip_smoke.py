@@ -8,8 +8,9 @@ Phases, in order; any failure exits non-zero:
 
   1. the card's name and power limit (nvidia-smi), torch and CUDA
      versions;
-  2. build the hand-written merge-reduce kernel (csrc/merge_reduce.cu)
-     with nvcc into build/yak_tpu_torch/;
+  2. build the hand-written kernels (csrc/merge_reduce.cu, which holds
+     the merge-reduce and merge-JOIN entry points, and csrc/compact.cu)
+     with one nvcc each, side by side, into build/yak_tpu_torch/;
   3. kernel vs its plain torch version on the card: the merge cases of
      tests/torch_merge_cases.py, and the inputs of every fold of one
      count of the phase 4 workload (captured as the count path passes
@@ -26,13 +27,47 @@ Phases, in order; any failure exits non-zero:
      from a 2^21-lane table must grow (overflow replay) and pass the
      same gates;
   5. the CLI on the card and on the CPU must dump byte-identical .yak
-     files for a FASTQ and a FASTA with N runs.
+     files for a FASTQ and a FASTA with N runs;
+  6. the lookup kernels (the merge-JOIN entry point of merge_reduce.cu
+     and csrc/compact.cu) vs their plain torch versions on the card: the
+     cases of tests/torch_join_cases.py and tests/torch_compact_cases.py,
+     and the arguments of every JOIN and compaction call of one qv run
+     (bench.py's warm-up read set) and one chkerr run of each phase 8
+     input (captured as the lookup path passes them, so at its exact
+     shapes; these runs are also the warm-up); outputs must be equal,
+     and both versions are timed with CUDA events at the main path's
+     shapes (JOIN: cap 2^23, 6,226,713 live keys, 8,388,578 queries;
+     compaction: 8,388,578 lanes);
+  7. qv at real size: bench.py's qv workload (400,000 error-free 150 bp
+     reads of the phase 4 genome, seeds 101 and 102, chunk 2^23) through
+     models.qv.run_qv against phase 4's table; cnt must sum to
+     48,000,000 with cnt[0] == 0 and md5 digests 70a2f8de2e2c and
+     72893d32c67e (bench.py:249-251), and the JOIN kernel must have
+     launched; prints lookups/s and a per-chunk split (extract, sort,
+     join, post) on the device timeline and on the host clock;
+  8. chkerr at real size: models.chkerr.main_chkerr against the same
+     table for the phase 4 genome cut into 20 contigs of 100,000 bp with
+     a substitution every 2 kbp and a 40 kbp novel stretch across the
+     2^20 chunk edge (chunk 2^20; its low run must come out as one row)
+     and for the 400,000 error-bearing phase 4 reads as FASTQ (chunk
+     2^23); the compaction kernel must have launched; prints rows and
+     the output's md5; then the contigs again at a marker budget of 64,
+     past which every chunk copies all its markers from the device,
+     must print the same;
+  9. the CLI's qv -p and chkerr -c 12 on the card and on the CPU (called in
+     this process, chunk 16384 so sequences span chunks) must print
+     byte-identical stdout for phase 5's FASTQ and FASTA, against a
+     table counted from the FASTQ.
 
-The last two lines of stdout are a JSON line of per-kernel results and
-the contract line {"ok": true, "device": {...}}.  Imports no JAX.
+The last two lines of stdout are a JSON line of per-kernel results (`ms`
+and `plain_ms` back to back, `device_ms` and `plain_device_ms` device
+only; see time_ms) and the contract line {"ok": true, "device": {...}}.
+Imports no JAX.
 """
 
+import contextlib
 import hashlib
+import io
 import json
 import os
 import subprocess
@@ -52,9 +87,22 @@ N_READS = 400_000
 GENOME_LEN = 2_000_000
 ERR = 0.003
 CHUNK_READS = 27_776                 # chunk = CHUNK_READS * 151 bases
-KERNEL = {"name": "merge_reduce", "route": "cuda",
-          "source": "yak_tpu_torch/csrc/merge_reduce.cu",
-          "replaces": "yak_tpu/ops/pallas_merge.py:155"}
+KERNELS = {
+    "merge_reduce": {"name": "merge_reduce", "route": "cuda",
+                     "source": "yak_tpu_torch/csrc/merge_reduce.cu",
+                     "replaces": "yak_tpu/ops/pallas_merge.py:155"},
+    "merge_join": {"name": "merge_join", "route": "cuda",
+                   "source": "yak_tpu_torch/csrc/merge_reduce.cu",
+                   "replaces": "yak_tpu/ops/pallas_merge.py:241"},
+    "compact": {"name": "compact", "route": "cuda",
+                "source": "yak_tpu_torch/csrc/compact.cu",
+                "replaces": "yak_tpu/ops/pallas_compact.py:124"},
+}
+QV_SEEDS = {101: "70a2f8de2e2c", 102: "72893d32c67e"}   # bench.py:250
+QV_SUM = 48_000_000                                    # bench.py:251
+N_CONTIGS, CONTIG_LEN = 20, 100_000
+SUB_EVERY = 2_000          # one substitution per 2 kbp of each contig
+NOVEL = (10, 30_000, 70_000)   # contig, novel stretch [30 kbp, 70 kbp)
 
 
 def log(msg):
@@ -79,16 +127,29 @@ def card_line():
 # -- phase 3 ------------------------------------------------------------
 
 def time_ms(fn, reps):
+    """(back-to-back ms, device ms) per call of `fn`, from CUDA events
+    around `reps` calls after one warm-up call.  The back-to-back figure
+    (the kernels line's `ms` and `plain_ms`) times the calls on an idle
+    stream, where the host's launch overhead shows whenever it exceeds
+    the device time.  The device figure (`device_ms`, `plain_device_ms`)
+    is taken with the stream held busy while the calls are queued, so
+    the events bracket the device work alone; the spin kernel that holds
+    it is torch.cuda._sleep, a private helper of PyTorch's own tests."""
     fn()
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(reps):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / reps
+    out = []
+    for prefill in (False, True):
+        torch.cuda.synchronize()
+        if prefill:
+            torch.cuda._sleep(200_000_000)    # ~0.1 s at the H100's clocks
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        for _ in range(reps):
+            fn()
+        t1.record()
+        torch.cuda.synchronize()
+        out.append(t0.elapsed_time(t1) / reps)
+    return tuple(out)
 
 
 def compare(merge, args, create, label):
@@ -113,32 +174,48 @@ def compare(merge, args, create, label):
     return err
 
 
-class _CaptureMerge:
-    """Stands in for the ops.merge module inside ops.countstep for one
-    count: records each fold's merge-reduce arguments and forwards the
-    call to the real wrapper."""
+class _Spy:
+    """Stands in for a kernel module (ops.merge, ops.compact) inside
+    ops.countstep: records the arguments of each call of one of its
+    wrappers and forwards every call to the real module."""
 
-    def __init__(self, merge):
-        self.merge, self.calls = merge, []
+    def __init__(self, module, name):
+        self.module, self.name, self.calls = module, name, []
 
-    def merge_reduce(self, *args):
-        self.calls.append(args)
-        return self.merge.merge_reduce(*args)
+    def __getattr__(self, attr):
+        fn = getattr(self.module, attr)
+        if attr != self.name:
+            return fn
+
+        def spy(*args):
+            self.calls.append(args)
+            return fn(*args)
+        return spy
+
+
+@contextlib.contextmanager
+def captured(module_attr, name):
+    """Inside the block, ops.countstep's calls of <module_attr>.<name>
+    are recorded; yields the list of their argument tuples.  The
+    wrappers never write into their inputs, so the arguments stay valid
+    after the calls."""
+    from yak_tpu_torch.ops import countstep
+
+    module = getattr(countstep, module_attr)
+    spy = _Spy(module, name)
+    setattr(countstep, module_attr, spy)
+    try:
+        yield spy.calls
+    finally:
+        setattr(countstep, module_attr, module)
 
 
 def fold_inputs(chunks, dev):
     """The merge-reduce arguments of every fold of one count of `chunks`
-    (tkeys, tcnt, size, bkeys, create).  A fold never writes into its
-    inputs, so they stay valid after the count."""
-    from yak_tpu_torch.ops import countstep, merge
-
-    spy = _CaptureMerge(merge)
-    countstep.merge = spy
-    try:
+    (tkeys, tcnt, size, bkeys, create)."""
+    with captured("merge", "merge_reduce") as calls:
         run_count(chunks, dev)
-    finally:
-        countstep.merge = merge
-    return spy.calls
+    return calls
 
 
 def kernel_checks(dev, chunks):
@@ -180,16 +257,19 @@ def kernel_checks(dev, chunks):
         err = max(err, compare(merge, args[:4], create, label))
         ms = time_ms(lambda: merge.merge_reduce(*args), 20)
         plain_ms = time_ms(lambda: merge.merge_reduce_plain(*args), 5)
-        log(f"  {label}: kernel {ms:.4f} ms, plain torch {plain_ms:.4f} ms")
-        times.append((ms, plain_ms))
+        log(f"  {label}: kernel {ms[0]:.4f} ms, plain torch "
+            f"{plain_ms[0]:.4f} ms back to back (device only: "
+            f"{ms[1]:.4f} / {plain_ms[1]:.4f} ms)")
+        times.append(ms + plain_ms)
     # the increment-only mode on the last fold's real inputs
     err = max(err, compare(merge, folds[-1][:4], False,
                            f"count fold {len(folds) - 1}, create=False"))
-    ms = sum(t[0] for t in times) / len(times)
-    plain_ms = sum(t[1] for t in times) / len(times)
+    ms, device_ms, plain_ms, plain_device_ms = (
+        sum(t[i] for t in times) / len(times) for i in range(4))
     log(f"  mean over the {len(folds)} folds: kernel {ms:.4f} ms, plain "
-        f"torch {plain_ms:.4f} ms")
-    return err, ms, plain_ms
+        f"torch {plain_ms:.4f} ms back to back (device only: "
+        f"{device_ms:.4f} / {plain_device_ms:.4f} ms)")
+    return err, ms, plain_ms, device_ms, plain_device_ms
 
 
 # -- phase 4 ------------------------------------------------------------
@@ -325,7 +405,7 @@ def count_path(dev, card, chunks):
                        f"{secs:.4f} s")
     if grown.cap <= 1 << 21:
         raise AssertionError("the growth run never grew the table")
-    return launches
+    return launches, table
 
 
 def check_gates(table, note):
@@ -396,6 +476,368 @@ def cli_check():
             os.unlink(os.path.join(d, name))
         os.rmdir(d)
 
+# -- phases 6-9: the lookup slice ---------------------------------------
+
+def write_fasta(path, seqs, names=None):
+    """bench.py:_write_fasta: one line per sequence."""
+    alph = np.frombuffer(b"ACGTN", np.uint8)
+    with open(path, "wb") as f:
+        for j, s in enumerate(seqs):
+            f.write(b">%s\n" % (names[j] if names else b"s%d" % j))
+            f.write(alph[s].tobytes())
+            f.write(b"\n")
+
+
+def write_lookup_inputs(d, reads):
+    """bench.py's qv read sets (seeds 100-102: 400,000 error-free 150 bp
+    reads of the genome, bench.py:237-243) and phase 8's inputs: the
+    genome as 20 contigs of 100,000 bp, and phase 4's error-bearing
+    reads as FASTQ."""
+    genome = np.random.default_rng(42).integers(0, 4, GENOME_LEN,
+                                                dtype=np.uint8)
+    paths = {}
+    for seed in (100, *QV_SEEDS):
+        rng = np.random.default_rng(seed)
+        starts = rng.integers(0, GENOME_LEN - READ_LEN + 1, N_READS)
+        paths[seed] = os.path.join(d, f"qv_{seed}.fa")
+        write_fasta(paths[seed], genome[starts[:, None]
+                                        + np.arange(READ_LEN)[None, :]])
+    paths["contigs"] = os.path.join(d, "contigs.fa")
+    write_fasta(paths["contigs"], make_contigs(genome),
+                [b"ctg%d" % i for i in range(N_CONTIGS)])
+    paths["reads"] = os.path.join(d, "reads.fq")
+    alph = np.frombuffer(b"ACGT", np.uint8)
+    qual = b"I" * READ_LEN
+    with open(paths["reads"], "wb") as f:
+        f.write(b"".join(b"@r%d\n%s\n+\n%s\n" % (i, alph[r].tobytes(), qual)
+                         for i, r in enumerate(reads)))
+    return paths
+
+
+def make_contigs(genome):
+    """The genome as N_CONTIGS contigs with a substitution every
+    SUB_EVERY bases (each a low run of K windows) and one novel stretch
+    in contig 10 at stream bases 1,030,000-1,070,000, across the 2^20
+    chunk edge (one low run of 40,030 windows that the host fold must
+    join over the edge)."""
+    rng = np.random.default_rng(7)
+    contigs = []
+    for i in range(N_CONTIGS):
+        c = genome[i * CONTIG_LEN:(i + 1) * CONTIG_LEN].copy()
+        pos = np.arange(SUB_EVERY // 2, CONTIG_LEN, SUB_EVERY)
+        c[pos] = (c[pos] + rng.integers(1, 4, len(pos))) % 4
+        contigs.append(c)
+    i, a, b = NOVEL
+    contigs[i][a:b] = (contigs[i][a:b] + rng.integers(1, 4, b - a)) % 4
+    return contigs
+
+
+def novel_row():
+    """chkerr's row for the novel stretch (every base of it substituted):
+    its windows start from a-K+1 to b-1."""
+    i, a, b = NOVEL
+    return f"ctg{i}\t{a - K + 1}\t{b + K - 1}\t{b - a + K - 1}"
+
+
+def qv_opts():
+    from yak_tpu_torch.models.qv import QvOpts
+
+    return QvOpts(chunk_size=1 << 23)
+
+
+CHKERR_CHUNKS = {"contigs": 1 << 20, "reads": 1 << 23}
+
+
+def run_chkerr(table, path, chunk):
+    from yak_tpu_torch.models.chkerr import ChkerrOpts, main_chkerr
+
+    buf = io.StringIO()
+    main_chkerr(ChkerrOpts(chunk_size=chunk), table, path, out=buf)
+    torch.cuda.synchronize()
+    return buf.getvalue()
+
+
+def max_err(a, b):
+    """Max absolute difference of two int tensors (0 for two empty)."""
+    if a.numel() == 0:
+        return 0
+    return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+
+
+def check_join(args, label):
+    from yak_tpu_torch.ops import merge
+
+    got = merge.merge_join(*args)
+    want = merge.merge_join_plain(*args)
+    torch.cuda.synchronize()
+    err = max_err(got, want)
+    if err or got.shape != want.shape:
+        raise AssertionError(f"{label}: JOIN kernel != plain (max abs err "
+                             f"{err})")
+    return err
+
+
+def check_compact(args, label):
+    from yak_tpu_torch.ops import compact
+
+    got = compact.compact(*args)
+    want = compact.compact_plain(*args)
+    torch.cuda.synchronize()
+    m = int(want[3])
+    err = max([abs(int(got[3]) - m)]
+              + [max_err(g[:m], w[:m]) for g, w in zip(got[:3], want[:3])])
+    if err:
+        raise AssertionError(f"{label}: compaction kernel != plain (n_kept "
+                             f"{int(got[3])} vs {m}, max abs err {err})")
+    return err
+
+
+def lookup_kernel_checks(dev, table, paths, card):
+    """Phase 6; returns {kernel: (max_abs_err, ms, plain_ms, device_ms,
+    plain_device_ms)}."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_compact_cases import CASES as COMPACT_CASES, as_int32
+    from torch_join_cases import CASES as JOIN_CASES, expected, table_arrays
+    from yak_tpu_torch.models.qv import run_qv
+    from yak_tpu_torch.ops import compact, merge
+    from yak_tpu_torch.ops.keys import INT64_MAX, u64_to_torch
+
+    errs = {"merge_join": 0, "compact": 0}
+    for name, build in JOIN_CASES.items():
+        hs, cs, batch, valid, cap, stale = build()
+        tk, tc, n = table_arrays(hs, cs, cap, stale)
+        h = u64_to_torch(batch, dev)
+        v = torch.from_numpy(valid).to(dev)
+        qkeys, order = torch.sort(torch.where(v, h, INT64_MAX))
+        args = (u64_to_torch(tk, dev), torch.from_numpy(tc).to(dev),
+                torch.tensor(n, dtype=torch.int32, device=dev), qkeys,
+                order.to(torch.int32))
+        errs["merge_join"] = max(errs["merge_join"], check_join(args, name))
+        if not np.array_equal(merge.merge_join(*args).cpu().numpy(),
+                              expected(hs, cs, batch, valid)):
+            raise AssertionError(f"{name}: JOIN kernel != numpy contract")
+    log(f"  JOIN: {len(JOIN_CASES)} cases equal")
+    for name, (build, _pallas) in COMPACT_CASES.items():
+        planes = [torch.from_numpy(as_int32(a)).to(dev) for a in build()]
+        errs["compact"] = max(errs["compact"], check_compact(planes, name))
+    log(f"  compaction: {len(COMPACT_CASES)} cases equal")
+
+    # the lookup path's own calls, captured from a warm-up run of each
+    with captured("merge", "merge_join") as qv_joins:
+        cnt = run_qv(qv_opts(), paths[100], table, out=io.StringIO())
+    log(f"  qv warm-up set: cnt sum {int(cnt.sum())}, "
+        f"{len(qv_joins)} JOIN calls captured")
+    ch_joins, ch_compacts = [], []
+    for name, chunk in CHKERR_CHUNKS.items():
+        with captured("merge", "merge_join") as js, \
+                captured("compact", "compact") as cs:
+            text = run_chkerr(table, paths[name], chunk)
+        ch_joins += js
+        ch_compacts += cs
+        log(f"  chkerr {name}: {text.count(chr(10))} rows, {len(js)} JOIN "
+            f"and {len(cs)} compaction calls captured")
+    if not qv_joins or not ch_compacts:
+        raise AssertionError("the lookup path made no kernel call")
+    for i, args in enumerate(qv_joins + ch_joins):
+        errs["merge_join"] = max(errs["merge_join"],
+                                 check_join(args, f"captured JOIN {i}"))
+    for i, args in enumerate(ch_compacts):
+        errs["compact"] = max(errs["compact"],
+                              check_compact(args, f"captured compaction {i}"))
+    log(f"  kernel == plain on all {len(qv_joins) + len(ch_joins)} captured "
+        f"JOIN calls and {len(ch_compacts)} compaction calls")
+
+    out = {}
+    for name, calls, kernel, plain, label in (
+            ("merge_join", qv_joins, merge.merge_join,
+             merge.merge_join_plain,
+             lambda a: f"JOIN (cap {a[0].numel()}, live {int(a[2])}, B "
+                       f"{a[3].numel()})"),
+            ("compact", ch_compacts, compact.compact, compact.compact_plain,
+             lambda a: f"compaction (n {a[0].numel()}, kept "
+                       f"{int((a[0] >= 0).sum())})")):
+        args = max(calls, key=lambda a: a[-2].numel())
+        ms = time_ms(lambda: kernel(*args), 20)
+        plain_ms = time_ms(lambda: plain(*args), 5)
+        log(f"  {label(args)}: kernel {ms[0]:.4f} ms, plain torch "
+            f"{plain_ms[0]:.4f} ms back to back (device only: "
+            f"{ms[1]:.4f} / {plain_ms[1]:.4f} ms) [{card}]")
+        out[name] = (errs[name], ms[0], plain_ms[0], ms[1], plain_ms[1])
+    return out
+
+
+class _Timeline:
+    """Stands in for ops.countstep inside models.qv: marks each chunk's
+    phases with a CUDA event and the host clock ("start" as the lookup
+    is queued, then "extract", "sort", "join", "post")."""
+
+    def __init__(self, countstep):
+        self.countstep, self.marks = countstep, []
+
+    def __getattr__(self, attr):
+        return getattr(self.countstep, attr)
+
+    def mark(self, name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.marks.append((name, ev, time.perf_counter()))
+
+    def lookup_chunk(self, *args):
+        self.mark("start")
+        return self.countstep.lookup_chunk(*args, hook=self.mark)
+
+    def qv_join_post(self, *args):
+        out = self.countstep.qv_join_post(*args)
+        self.mark("post")
+        return out
+
+
+def qv_path(table, paths, card):
+    """Phase 7; returns the JOIN launches of the first timed run."""
+    from yak_tpu_torch.models import qv
+    from yak_tpu_torch.ops import merge
+
+    n_lookups = N_READS * (READ_LEN - K + 1)
+    first = None
+    for seed, digest in QV_SEEDS.items():
+        tl = _Timeline(qv.countstep)
+        qv.countstep = tl
+        merge.merge_join.launches = 0
+        try:
+            t0 = time.perf_counter()
+            cnt = qv.run_qv(qv_opts(), paths[seed], table, out=io.StringIO())
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            qv.countstep = tl.countstep
+        launches = merge.merge_join.launches
+        first = launches if first is None else first
+        dg = hashlib.md5(np.ascontiguousarray(cnt, np.int64)
+                         .tobytes()).hexdigest()[:12]
+        log(f"  seed {seed}: cnt sum {int(cnt.sum())}, cnt[0] "
+            f"{int(cnt[0])}, digest {dg}, JOIN launches {launches}; wall "
+            f"{wall:.4f} s, {n_lookups / wall:.1f} lookups/s [{card}]")
+        if int(cnt.sum()) != QV_SUM or int(cnt[0]) != 0 or dg != digest:
+            raise AssertionError(f"qv seed {seed}: gates failed (want sum "
+                                 f"{QV_SUM}, cnt[0] 0, digest {digest})")
+        if launches <= 0:
+            raise AssertionError("the qv path never launched the JOIN")
+        split_chunks(tl.marks, card)
+    return first
+
+
+def split_chunks(marks, card):
+    """Per-chunk device spans (CUDA events) and host spans of one marked
+    qv run, and the host time between chunks (ingest, packing, h2d)."""
+    chunks, cur = [], None
+    for m in marks:
+        if m[0] == "start":
+            cur = [m]
+            chunks.append(cur)
+        else:
+            cur.append(m)
+    busy = 0.0
+    for i, c in enumerate(chunks):
+        dev = [(b[0], a[1].elapsed_time(b[1])) for a, b in zip(c, c[1:])]
+        host = [(b[0], (b[2] - a[2]) * 1e3) for a, b in zip(c, c[1:])]
+        busy += sum(ms for _n, ms in dev)
+        log(f"  chunk {i} device: " + ", ".join(
+            f"{n} {ms:.4f} ms" for n, ms in dev) + f" [{card}]")
+        log(f"  chunk {i} host:   " + ", ".join(
+            f"{n} {ms:.4f} ms" for n, ms in host))
+    between = sum(b[0][2] - a[-1][2] for a, b in zip(chunks, chunks[1:]))
+    log(f"  device lookup+post {busy:.4f} ms over {len(chunks)} chunks; "
+        f"host between chunks (read, pack, upload) {between * 1e3:.4f} ms")
+
+
+def chkerr_path(table, paths, card):
+    """Phase 8; returns the compaction launches of the reads run."""
+    from yak_tpu_torch.ops import compact, countstep, merge
+
+    launches = 0
+    texts = {}
+    for name, chunk in CHKERR_CHUNKS.items():
+        compact.compact.launches = 0
+        merge.merge_join.launches = 0
+        t0 = time.perf_counter()
+        text = texts[name] = run_chkerr(table, paths[name], chunk)
+        wall = time.perf_counter() - t0
+        launches = compact.compact.launches
+        rows = text.splitlines()
+        log(f"  {name} (chunk {chunk}): {len(rows)} rows, md5 "
+            f"{hashlib.md5(text.encode()).hexdigest()[:12]}, compaction "
+            f"launches {launches}, JOIN launches "
+            f"{merge.merge_join.launches}, wall {wall:.4f} s [{card}]")
+        if launches <= 0 or merge.merge_join.launches <= 0:
+            raise AssertionError(f"chkerr {name} never launched its kernels")
+        for r in rows:
+            f = r.split("\t")
+            if len(f) != 4 or int(f[2]) - int(f[1]) != int(f[3]) + K - 1:
+                raise AssertionError(f"chkerr {name}: malformed row {r!r}")
+    if not rows:
+        raise AssertionError("chkerr found no error run in the reads")
+    rows = texts["contigs"].splitlines()
+    n_subs = N_CONTIGS * (CONTIG_LEN // SUB_EVERY)
+    if novel_row() not in rows or len(rows) < n_subs // 2:
+        raise AssertionError(f"chkerr contigs: {len(rows)} rows, want about "
+                             f"{n_subs} and {novel_row()!r}, the run "
+                             f"joined across the chunk edge")
+    log(f"  contigs: {novel_row()!r} joined across the 2^20 chunk edge")
+    # the marker-budget overflow on the card: a budget of 64 markers a
+    # chunk copies every marker from the compacted planes instead
+    saved = countstep.CHKERR_MAX_RUNS
+    countstep.CHKERR_MAX_RUNS = 64
+    try:
+        text = run_chkerr(table, paths["contigs"], CHKERR_CHUNKS["contigs"])
+    finally:
+        countstep.CHKERR_MAX_RUNS = saved
+    if text != texts["contigs"]:
+        raise AssertionError("chkerr contigs: the output past a marker "
+                             "budget of 64 differs")
+    log("  contigs at a marker budget of 64 (every chunk over it): output "
+        "identical")
+    return launches
+
+
+def lookup_cli_check():
+    """Phase 9: qv -p and chkerr through the CLI entry point, on the card
+    and on the CPU."""
+    from yak_tpu_torch import cli
+
+    d = tempfile.mkdtemp(prefix="yak_tpu_torch_smoke_")
+    try:
+        fq, fa = write_inputs(d)
+        yak = os.path.join(d, "reads.yak")
+        with contextlib.redirect_stderr(io.StringIO()):
+            if cli.main(["count", "-k31", "-K16384", "--device", "cuda",
+                         "-o", yak, fq]) != 0:
+                raise AssertionError("CLI count failed")
+        # chkerr at -c 12, near the reads' k-mer coverage, so that low
+        # runs are many and some cross the 16384-base chunk edges
+        for cmd in (["qv", "-p"], ["chkerr", "-c", "12"]):
+            for src in (fq, fa):
+                outs = {}
+                for devname in ("cuda", "cpu"):
+                    buf, err = io.StringIO(), io.StringIO()
+                    with contextlib.redirect_stdout(buf), \
+                            contextlib.redirect_stderr(err):
+                        ret = cli.main([*cmd, "-K16384", "--device",
+                                        devname, yak, src])
+                    if ret != 0:
+                        raise AssertionError(f"CLI {cmd[0]} failed on "
+                                             f"{devname}: {err.getvalue()}")
+                    outs[devname] = buf.getvalue()
+                name = f"{' '.join(cmd)} {os.path.basename(src)}"
+                if outs["cuda"] != outs["cpu"]:
+                    raise AssertionError(f"{name}: CUDA and CPU stdout differ")
+                log(f"  {name}: CUDA and CPU stdout identical "
+                    f"({outs['cuda'].count(chr(10))} lines, md5 "
+                    f"{hashlib.md5(outs['cuda'].encode()).hexdigest()[:12]})")
+    finally:
+        for name in os.listdir(d):
+            os.unlink(os.path.join(d, name))
+        os.rmdir(d)
+
 
 def main():
     if not torch.cuda.is_available():
@@ -413,27 +855,54 @@ def main():
         f"{torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} "
         f"device(s)")
 
-    phase("2. build")
-    _lib, secs = cuda_build.load("merge_reduce")
-    log(f"  built {cuda_build.library_path('merge_reduce').name} in "
-        f"{secs:.3f} s")
+    phase("2. build (one nvcc per kernel source, side by side)")
+    t0 = time.perf_counter()
+    built = cuda_build.load_all(["merge_reduce", "compact"])
+    for name, (_lib, secs) in built.items():
+        log(f"  built {cuda_build.library_path(name).name} in {secs:.3f} s")
+    log(f"  build wall {time.perf_counter() - t0:.3f} s")
 
-    chunks = pack_chunks(make_reads())
+    reads = make_reads()
+    chunks = pack_chunks(reads)
 
     phase("3. kernel vs plain torch on the card")
-    err, ms, plain_ms = kernel_checks(dev, chunks)
+    results = {"merge_reduce": kernel_checks(dev, chunks)}
     log(f"  [{card}]")
 
     phase("4. count path at real size")
-    launches = count_path(dev, card, chunks)
+    launches = {}
+    launches["merge_reduce"], table = count_path(dev, card, chunks)
 
     phase("5. CLI on the card vs on the CPU")
     cli_check()
+
+    d = tempfile.mkdtemp(prefix="yak_tpu_torch_lookup_")
+    try:
+        t0 = time.perf_counter()
+        paths = write_lookup_inputs(d, reads)
+        log(f"  lookup inputs written in {time.perf_counter() - t0:.3f} s")
+
+        phase("6. lookup kernels vs plain torch on the card")
+        results.update(lookup_kernel_checks(dev, table, paths, card))
+
+        phase("7. qv at real size")
+        launches["merge_join"] = qv_path(table, paths, card)
+
+        phase("8. chkerr at real size")
+        launches["compact"] = chkerr_path(table, paths, card)
+    finally:
+        for name in os.listdir(d):
+            os.unlink(os.path.join(d, name))
+        os.rmdir(d)
+
+    phase("9. lookup CLI on the card vs on the CPU")
+    lookup_cli_check()
     torch.cuda.synchronize()
 
-    print(json.dumps({"kernels": [dict(KERNEL, launches=launches,
-                                       max_abs_err=err, ms=ms,
-                                       plain_ms=plain_ms)]}))
+    print(json.dumps({"kernels": [
+        dict(KERNELS[name], launches=launches[name], max_abs_err=r[0],
+             ms=r[1], plain_ms=r[2], device_ms=r[3], plain_device_ms=r[4])
+        for name, r in results.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

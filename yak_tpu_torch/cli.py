@@ -1,8 +1,9 @@
 """Command-line interface: `python -m yak_tpu_torch <command> [options]`.
 
-Port of `yak_tpu/cli.py` for `count` (without `-b`, k <= 31) and
-`version`, with the same options, messages and footer.  Every other
-command of the reference CLI exits 1 with "not yet ported".
+Port of `yak_tpu/cli.py` for `count` (without `-b`, k <= 31), `qv`,
+`chkerr` and `version`, with the same options, messages and footer.
+Every other command of the reference CLI exits 1 with "not yet
+ported".
 
 The device is chosen explicitly: `--device cuda|cuda:N|cpu` anywhere
 on the command line, else `cuda`.  When CUDA is asked for and absent,
@@ -17,9 +18,8 @@ import torch
 
 from yak_tpu_torch import __version__
 
-_NOT_PORTED = ("recount", "cntasm", "subtract", "isec", "print", "qv",
-               "triobin", "trioeval", "inspect", "chkerr", "sexchr",
-               "groupxy")
+_NOT_PORTED = ("recount", "cntasm", "subtract", "isec", "print",
+               "triobin", "trioeval", "inspect", "sexchr", "groupxy")
 
 
 def _parse_num(s):
@@ -131,6 +131,44 @@ def main_count(argv, device):
     return 0
 
 
+def main_qv(argv, device):
+    from yak_tpu_torch.models.qv import QvOpts, main_qv as qv_main
+    from yak_tpu_torch.table import KmerTable
+    o, pos = _getopt(argv, {"K": 1, "t": 1, "l": 1, "f": 1, "p": 0, "e": 1,
+                            "E": 0})
+    opt = QvOpts()
+    if "K" in o: opt.chunk_size = _parse_num(o["K"])
+    if "l" in o: opt.min_len = _parse_num(o["l"])
+    if "f" in o: opt.min_frac = float(o["f"])
+    if "t" in o: opt.n_threads = int(o["t"])
+    if "p" in o: opt.print_each = True
+    if "E" in o: opt.print_err_kmer = True
+    if "e" in o: opt.fpr = float(o["e"])
+    if len(pos) < 2:
+        return _usage(["Usage: yak_tpu_torch qv [options] <kmer.hash> "
+                       "<seq.fa>"])
+    qv_main(opt, KmerTable.restore(pos[0], device), pos[1])
+    return 0
+
+
+def main_chkerr(argv, device):
+    from yak_tpu_torch.models.chkerr import ChkerrOpts, main_chkerr as ce
+    from yak_tpu_torch.table import KmerTable
+    o, pos = _getopt(argv, {"t": 1, "c": 1, "s": 1, "K": 1})
+    opt = ChkerrOpts()
+    if "c" in o: opt.min_cnt = int(o["c"])
+    if "s" in o: opt.min_streak = int(o["s"])
+    if "K" in o: opt.chunk_size = _parse_num(o["K"])
+    if len(pos) < 2:
+        return _usage(["Usage: yak_tpu_torch chkerr [options] <count.yak> "
+                       "<seq.fa>"])
+    ce(opt, KmerTable.restore(pos[0], device), pos[1])
+    return 0
+
+
+_COMMANDS = {"count": main_count, "qv": main_qv, "chkerr": main_chkerr}
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     t0 = time.time()
@@ -138,7 +176,7 @@ def main(argv=None):
     if not argv:
         print("Usage: yak_tpu_torch <command> <argument>", file=sys.stderr)
         print("Command:", file=sys.stderr)
-        for c in ("count", "version"):
+        for c in list(_COMMANDS) + ["version"]:
             print(f"  {c}", file=sys.stderr)
         return 1
     cmd = argv[0]
@@ -149,12 +187,12 @@ def main(argv=None):
         print(f"[E::main] command '{cmd}' is not yet ported to "
               f"yak_tpu_torch (see ROADMAP.md)", file=sys.stderr)
         return 1
-    if cmd != "count":
+    if cmd not in _COMMANDS:
         print("[E::main] unknown command", file=sys.stderr)
         return 1
     device = resolve_device(dev_name or "cuda")
     try:
-        ret = main_count(argv[1:], device)
+        ret = _COMMANDS[cmd](argv[1:], device)
     except FileNotFoundError as e:
         # reference-style clean failure (main.c:82,267)
         print(f"ERROR: failed to open file '{e.filename or e}'",

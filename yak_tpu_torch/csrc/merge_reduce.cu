@@ -60,6 +60,38 @@
 // - the x64 flag flips, the 1024-aligned pending-block DMA and the
 //   smoke gates of the TPU toolchain.
 //
+// Lookup (JOIN) mode, `yak_merge_join`: the same kernel's lookup=True
+// mode (pallas_merge.py:241-262, 314-322, driven by
+// countstep.run_join_lookup :1694 and lookup_pallas :1035).  Each query
+// of a sorted batch gets its table count, or -1, written at its original
+// lane (the query's index payload):
+//
+//   table   : as above;
+//   queries : int64 keys ascending, invalid lanes = INT64_MAX at the
+//             tail; int32 qidx = the original lane of each sorted query;
+//   out     : vals[qidx[j]] = tcnt[i] where tkeys[i] == qkeys[j] for
+//             some i < size, else -1; invalid lanes give -1.
+//
+// What bounds it: device-memory bytes again, about 12 B x size (table
+// slices, read once) + 12 B x B (keys and qidx) + one scattered 4 B
+// store per query; a query costs one binary search in shared memory.
+//
+// Design.  The merge-path partition (k_partition, table first on equal
+// keys) cuts table + queries into tiles of TILE merged lanes.  Table
+// keys are unique, so a query's equal table key is either in its tile's
+// table slice or is the one table lane just before the slice: the lanes
+// before it in the merged order are <= the query, and an equal key
+// further back would repeat.  So no run carries across tiles and the
+// count mode's aggregate passes are not needed: two launches, partition
+// then join-and-scatter (k_join), which stages the slice and the lane
+// before it in shared memory and binary-searches it for each query.
+// Storing at qidx folds plookup_post's order-restoring u64 sort into
+// the store: the TPU kernel emits values in key order and needed it.
+// The TPU's cnt+1 value plane riding a segmented sum, its stream bit
+// and its invalid-key encoding (...FFFD) are not needed either: the
+// invalid lanes are the tail past the partition's nb, and k_join's
+// blocks fill them with -1, TILE lanes each.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (yak_tpu_torch/ops/cuda_build.py); bound with
 //        ctypes (yak_tpu_torch/ops/merge.py).
@@ -464,11 +496,65 @@ k_scatter(const long long* __restrict__ A, const int* __restrict__ Acnt,
     }
 }
 
+// Lookup mode: block t joins tile t's queries against its table slice
+// plus the table lane just before it, stores each result at the query's
+// original lane, and fills TILE lanes of the invalid tail with -1.
+__global__ void __launch_bounds__(NT)
+k_join(const long long* __restrict__ A, const int* __restrict__ Acnt,
+       const int* __restrict__ size_ptr, long long cap,
+       const long long* __restrict__ B, const int* __restrict__ qidx,
+       long long nbatch, const long long* __restrict__ nb_ptr,
+       const long long* __restrict__ part, int* __restrict__ vals) {
+    __shared__ long long sa[TILE + 1];
+    __shared__ int sc[TILE + 1];
+    const long long t = blockIdx.x;
+    const long long size = live_size(size_ptr, cap);
+    const long long nb = *nb_ptr;
+    const long long N = size + nb;
+    const long long d0 = min(t * TILE, N);
+    const long long d1 = min((t + 1) * TILE, N);
+    const long long a0 = part[t], a1 = part[t + 1];
+    const long long b0 = d0 - a0, b1 = d1 - a1;
+    const long long s0 = a0 > 0 ? a0 - 1 : 0;
+    const int na = (int)(a1 - s0);
+    for (int i = threadIdx.x; i < na; i += NT) {
+        sa[i] = A[s0 + i];
+        sc[i] = Acnt[s0 + i];
+    }
+    __syncthreads();
+    for (long long j = b0 + threadIdx.x; j < b1; j += NT) {
+        const long long q = B[j];
+        const int p = lower_bound_s(sa, na, q);
+        vals[qidx[j]] = (p < na && sa[p] == q) ? sc[p] : -1;
+    }
+    const long long e0 = nb + t * TILE;
+    const long long e1 = min(e0 + TILE, nbatch);
+    for (long long j = e0 + threadIdx.x; j < e1; j += NT) vals[qidx[j]] = -1;
+}
+
 }  // namespace
 
 extern "C" {
 
 int yak_merge_reduce_tile(void) { return TILE; }
+
+// Lookup mode.  Scratch: part[ntiles + 1], nb[1], with ntiles =
+// ceil((cap + nbatch) / TILE) >= 1 (enough tiles for the merged lanes
+// and for the invalid tail).  Returns the first CUDA error (0 = none).
+int yak_merge_join(const long long* tkeys, const int* tcnt, const int* size,
+                   long long cap, const long long* qkeys, const int* qidx,
+                   long long nbatch, long long ntiles, long long* part,
+                   long long* nb, int* vals, void* stream) {
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const long long pblocks = (ntiles + 1 + 255) / 256;
+    k_partition<<<(unsigned)pblocks, 256, 0, s>>>(tkeys, size, cap, qkeys,
+                                                  nbatch, ntiles, part, nb);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    k_join<<<(unsigned)ntiles, NT, 0, s>>>(tkeys, tcnt, size, cap, qkeys,
+                                           qidx, nbatch, nb, part, vals);
+    return (int)cudaGetLastError();
+}
 
 const char* yak_cuda_error_string(int err) {
     return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -16,12 +16,15 @@ noted in SURVEY §5).
 Per-position metadata (sequence id, base offset) is built host-side as
 NumPy arrays for the per-sequence workloads (qv/trio/sexchr/chkerr).
 
-Port of `yak_tpu/io/pack.py` (numpy only): the device-upload helper
-`pack_chunk_planes` of the JAX package is left out; the count fold
-uploads planes itself (`table.KmerTable._fold_codes`).
+Port of `yak_tpu/io/pack.py`.  The count fold uploads its grouped
+planes itself (`table.KmerTable._fold_codes`); the lookup workloads
+upload one chunk at a time through `pack_chunk_planes`.
 """
 
 import numpy as np
+import torch
+
+from yak_tpu_torch.ops.keys import u32_to_torch
 
 
 def pack_planes(codes):
@@ -127,6 +130,26 @@ def detect_periodic_meta(packed):
     if (packed.codes[:w] >= 4).sum() != m - 1:
         return None
     return (R, w)
+
+
+def pack_chunk_planes(packed, device):
+    """Pack ONE flat code chunk (a PackedChunk with record metadata) and
+    upload it for a lookup step: returns the `countstep.extract`
+    argument with one row, ("periodic", (plo, phi, wvec), L, R) for the
+    fixed-length-read layout (2 bits a base on the wire, periodicity
+    read off the record metadata) or ("planes", (plo, phi, pnn), L)
+    otherwise (3 bits a base)."""
+    codes = packed.codes
+    per = detect_periodic_meta(packed)
+    L = codes.shape[0]
+    if per is not None:
+        R, w = per
+        plo, phi = pack_planes2(codes)
+        wvec = torch.tensor([w], dtype=torch.int32, device=device)
+        return ("periodic", (u32_to_torch(plo, device),
+                             u32_to_torch(phi, device), wvec), L, R)
+    return ("planes", tuple(u32_to_torch(p, device)
+                            for p in pack_planes(codes)), L)
 
 
 class PackedChunk:

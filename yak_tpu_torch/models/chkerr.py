@@ -1,0 +1,155 @@
+"""Error-streak detection (chkerr.c): report runs of consecutive k-mers
+with count < min_cnt longer than min_streak.
+
+Reference per-position logic (chkerr.c:55-68): at each extracted k-mer
+(end position i) with cnt < min_cnt, extend the streak if i == last+1,
+else emit the previous streak (if > min_streak) and restart.  The emitted
+row is `name  last+1-k-(streak-1)  last+1  streak`.
+
+Port of `yak_tpu/models/chkerr.py`, its single-device JOIN path with the
+marker compaction: per chunk, the lookups (extract, query sort, the
+merge-JOIN kernel), the run-end markers and their compaction (the
+hand-written compaction kernel) run on the table's device, and only the
+markers come back; the host maps marker lanes to sequence positions and
+merges runs that span a chunk boundary (`_ChkerrFold`, carried over
+unchanged).  Not ported here: the mesh path (`_main_chkerr_mesh`) and
+the psort branch (ROADMAP.md Queue 1).
+"""
+
+import sys
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from yak_tpu_torch.io.chunks import ChunkSource
+from yak_tpu_torch.io.pack import pack_chunk_planes
+from yak_tpu_torch.ops import countstep
+
+
+@dataclass
+class ChkerrOpts:
+    min_cnt: int = 3
+    min_streak: int = 5
+    chunk_size: int = 1_000_000_000
+    n_threads: int = 8
+
+
+def main_chkerr(opt, table, seq_fn, out=None):
+    """Device fold with a 2-deep dispatch pipeline: chunk i's device work
+    is queued before the host streak pass of chunk i-1, whose markers
+    were copied to the host behind an event of their own (no wait for
+    chunk i).  Only the first CHKERR_MAX_RUNS markers are copied ahead;
+    a chunk with more copies all of them from its compacted planes,
+    which stay on the device until the chunk is folded."""
+    out = out or sys.stdout
+    k = table.k         # <= 31: the port's KmerTable holds no wider keys
+    table.flush()
+    dev = table.device
+    chunk = max(1 << 14, min(int(opt.chunk_size), 1 << 23))
+    chunk = -(-chunk // 1024) * 1024
+    M = chunk - k + 1
+    fold = _ChkerrFold(opt, k, out)
+
+    def dispatch(packed):
+        carg = pack_chunk_planes(packed, dev)
+        vals, valid = countstep.lookup_chunk(carg, k, table.keys,
+                                             table.cnt, table.size)
+        khi, runlen, n = countstep.chkerr_mark_mid(vals, valid,
+                                                   int(opt.min_cnt), M)
+        lanes, lens = countstep.run_mark_compact(khi, runlen)
+        maxr = countstep.CHKERR_MAX_RUNS
+        return (lanes, lens) + _to_host_async((n, lanes[:maxr], lens[:maxr]))
+
+    def produce():
+        pending = []
+        for packed in ChunkSource(seq_fn, chunk, k, with_meta="records"):
+            if not len(packed.rec_gid):
+                continue
+            pending.append((packed, dispatch(packed)))
+            if len(pending) >= 2:
+                yield pending.pop(0)
+        yield from pending
+
+    for packed, (all_lanes, all_lens, n, lanes, lens, ready) in produce():
+        if ready is not None:
+            ready.synchronize()
+        n = int(n)
+        if n > countstep.CHKERR_MAX_RUNS:
+            # marker overflow (low-coverage table vs a large input): the
+            # compacted planes on the device hold every marker
+            lanes, lens = all_lanes[:n].cpu(), all_lens[:n].cpu()
+        fold.chunk(packed, lanes[:n].numpy().astype(np.int64),
+                   lens[:n].numpy().astype(np.int64), M)
+    fold.finish()
+
+
+def _to_host_async(tensors):
+    """Start copies of `tensors` to pinned host memory on the current
+    stream; returns the host tensors and an event that is done when they
+    are (None for CPU tensors, returned as they are)."""
+    if tensors[0].device.type == "cpu":
+        return tuple(tensors) + (None,)
+    host = []
+    for t in tensors:
+        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        h.copy_(t, non_blocking=True)
+        host.append(h)
+    ready = torch.cuda.Event()
+    ready.record()
+    return tuple(host) + (ready,)
+
+
+class _ChkerrFold:
+    """Host side of the chkerr device fold: maps marker lanes to
+    sequence positions and merges runs spanning chunk boundaries
+    (chkerr.c:55-68)."""
+
+    def __init__(self, opt, k, out):
+        self.opt, self.k, self.out = opt, k, out
+        self.carry = None   # (name, gi, streak, end_pos) open run
+
+    def emit(self, name, streak, endpos):
+        if streak > self.opt.min_streak:
+            k = self.k
+            self.out.write(f"{name}\t{endpos + 1 - k - (streak - 1)}\t"
+                           f"{endpos + 1}\t{streak}\n")
+
+    def chunk(self, packed, lanes, lens, M):
+        nseq = len(packed.rec_gid)
+        n = len(lanes)
+        starts = np.minimum(packed.rec_start, M)
+        seg_of = np.searchsorted(starts, lanes, side="right") - 1
+        continues = (int(packed.rec_off0[-1] + packed.rec_take[-1])
+                     < int(packed.rec_len[-1]))
+        ws0 = int(starts[0])
+        # last window lane of the final piece (piece windows are
+        # [start, start + take - k] inclusive)
+        we = int(packed.rec_start[-1] + packed.rec_take[-1] - self.k)
+
+        if self.carry is not None:
+            name_c, gi_c, streak_c, end_c = self.carry
+            self.carry = None
+            if (n > 0 and int(seg_of[0]) == 0
+                    and int(lanes[0] - lens[0] + 1) == ws0
+                    and int(packed.rec_gid[0]) == gi_c):
+                lens[0] += streak_c   # merged across the chunk boundary
+            else:
+                self.emit(name_c, streak_c, end_c)
+
+        for i in range(n):
+            j = int(seg_of[i])
+            gi = int(packed.rec_gid[j])
+            endpos = (int(lanes[i]) - int(starts[j])
+                      + int(packed.rec_off0[j]) + self.k - 1)
+            streak = int(lens[i])
+            if continues and j == nseq - 1 and int(lanes[i]) == we:
+                self.carry = (packed.seq_names[gi], gi, streak, endpos)
+            else:
+                self.emit(packed.seq_names[gi], streak, endpos)
+
+    def finish(self):
+        if self.carry is not None:
+            name_c, _gi, streak_c, end_c = self.carry
+            self.emit(name_c, streak_c, end_c)
+            self.carry = None

@@ -1,0 +1,105 @@
+"""Stable stream compaction: drop marked lanes, pack the kept ones to the
+front in order.
+
+`compact` is the port of the TPU kernel
+`yak_tpu/ops/pallas_compact.py::_kernel` (`compact_raw`, `compact_u32`).
+For CUDA tensors it launches the hand-written Hopper kernel
+`yak_tpu_torch/csrc/compact.cu` (see the note at its top for the
+design); for CPU tensors it runs `compact_plain`, the plain torch
+version of the same contract.  There is no fallback between the two: a
+CUDA tensor launches the kernel or raises.
+
+Contract:
+
+  khi, klo, v  int32 [n]   three planes; a lane is dropped where khi < 0
+                           (bit 31 set: the JAX package's marker
+                           0x80000000)
+
+returns (ohi, olo, ov int32 [n], n_kept int32 []): the kept lanes first,
+in input order; lanes from n_kept on are unspecified.
+"""
+
+import ctypes
+import functools
+
+import torch
+
+
+def _check(khi, klo, v):
+    for name, t in (("khi", khi), ("klo", klo), ("v", v)):
+        if t.dtype != torch.int32:
+            raise TypeError(f"compact: {name} must be torch.int32, got "
+                            f"{t.dtype}")
+        if not t.is_contiguous() or t.dim() != 1:
+            raise ValueError(f"compact: {name} must be 1-D and contiguous")
+        if t.device != khi.device or t.shape != khi.shape:
+            raise ValueError("compact: the planes differ in device or shape")
+
+
+def compact(khi, klo, v):
+    """Stable compaction of the lanes with khi >= 0 (contract above)."""
+    _check(khi, klo, v)
+    if khi.device.type == "cpu":
+        return compact_plain(khi, klo, v)
+    if khi.device.type != "cuda":
+        raise ValueError(f"compact: no kernel for device {khi.device}")
+    return _launch(khi, klo, v)
+
+
+compact.launches = 0    # kernel launches, counted in _launch
+
+
+@functools.cache
+def _library():
+    from yak_tpu_torch.ops import cuda_build
+
+    lib, _secs = cuda_build.load("compact")
+    p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    lib.yak_compact.argtypes = [p, p, p, i64, i64,   # inputs, n, ntiles
+                                p, p,                # scratch
+                                p, p, p, p,          # outputs
+                                p]                   # stream
+    lib.yak_compact.restype = i32
+    lib.yak_compact_tile.argtypes = []
+    lib.yak_compact_tile.restype = i32
+    lib.yak_compact_error_string.argtypes = [i32]
+    lib.yak_compact_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _launch(khi, klo, v):
+    lib = _library()
+    dev = khi.device
+    n = khi.numel()
+    ntiles = max(1, -(-n // lib.yak_compact_tile()))
+    tile_cnt = torch.empty(ntiles, dtype=torch.int32, device=dev)
+    tile_off = torch.empty(ntiles, dtype=torch.int64, device=dev)
+    ohi, olo, ov = (torch.empty(n, dtype=torch.int32, device=dev)
+                    for _ in range(3))
+    n_kept = torch.empty((), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.yak_compact(
+            khi.data_ptr(), klo.data_ptr(), v.data_ptr(), n, ntiles,
+            tile_cnt.data_ptr(), tile_off.data_ptr(), ohi.data_ptr(),
+            olo.data_ptr(), ov.data_ptr(), n_kept.data_ptr(), stream)
+    if err != 0:
+        msg = lib.yak_compact_error_string(err).decode()
+        raise RuntimeError(f"compact kernel launch failed: {msg}")
+    compact.launches += 1
+    return ohi, olo, ov, n_kept
+
+
+def compact_plain(khi, klo, v):
+    """The plain torch version: each kept lane's output position is its
+    running kept count; dropped lanes go to one spare lane past n, which
+    is cut off.  No host sync."""
+    n = khi.shape[0]
+    keep = khi >= 0
+    dst = torch.where(keep, torch.cumsum(keep, 0) - 1, n)
+    outs = []
+    for plane in (khi, klo, v):
+        o = torch.zeros(n + 1, dtype=torch.int32, device=khi.device)
+        o.scatter_(0, dst, plane)
+        outs.append(o[:n])
+    return outs[0], outs[1], outs[2], keep.sum().to(torch.int32)

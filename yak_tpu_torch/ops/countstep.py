@@ -1,5 +1,7 @@
-"""The count fold: packed planes -> k-mer hashes -> sorted batch ->
-merge-reduce into the table.
+"""The device steps: the count fold (packed planes -> k-mer hashes ->
+sorted batch -> merge-reduce into the table) and the lookup steps of qv
+and chkerr (packed planes -> hashes -> sorted queries -> merge-JOIN ->
+per-chunk reduction).
 
 Port of the default count engine of `yak_tpu/ops/countstep.py`
 (`get_count_step_pmerge{,_planes}`, `_pmerge_prep_core`,
@@ -12,11 +14,21 @@ kernel only.
 
 The step never writes into its inputs, so the caller keeps the pre-step
 table and can replay the fold after growing it (`table.KmerTable`).
+
+The lookup steps port `run_join_lookup` with `get_qv_join_pre`, the qv
+reduction (`_qv_chunk_stats`, `_qv_fold_step`, `_qv_reduce`,
+`_qv_ek_markers`, `get_qv_join_post`) and the chkerr marker mid with its
+compaction (`get_chkerr_mark_mid`, `run_mark_compact`).  The JOIN writes
+each query's value at its original lane, so `plookup_post`'s order
+restore has no counterpart here.  The reductions are XLA code in the JAX
+package and plain torch here; the compaction is the hand-written kernel
+(`ops/compact.py`).  No step reads a value back to the host.
 """
 
 import torch
 
-from yak_tpu_torch.ops import merge
+from yak_tpu_torch import YAK_MAX_COUNT
+from yak_tpu_torch.ops import compact, merge
 from yak_tpu_torch.ops.keys import INT64_MAX
 from yak_tpu_torch.ops.kmers import extract_from_planes, extract_periodic
 
@@ -66,3 +78,166 @@ def finalize(okeys, ocnt, new_size, n_new, cap):
     countstep.finalize_pmerge and pmerge_overflow)."""
     return (okeys, ocnt, torch.clamp(new_size, max=cap),
             n_new.to(torch.int64), new_size > cap)
+
+
+# -- lookups ------------------------------------------------------------
+
+QV_MAX_EK = 1 << 17          # -E marker budget per chunk
+CHKERR_MAX_RUNS = 1 << 17    # chkerr marker budget per chunk
+MARK_DROP = -(1 << 31)       # khi of a dropped lane (bit 31 set)
+
+
+def lookup_chunk(carg, k, tkeys, tcnt, size, hook=None):
+    """Per-window table lookup of one chunk: extract, sort the queries
+    with their lane index as payload, merge-JOIN against the table.
+    Returns (vals int32 [M], valid bool [M]) in lane order: the count of
+    each valid window's k-mer, -1 where absent; invalid lanes -1.
+    `hook`, when given, is called with each phase's name as the phase
+    is queued."""
+    mark = hook or (lambda _name: None)
+    h, valid = extract(carg, k)
+    h, valid = h.reshape(-1), valid.reshape(-1)
+    mark("extract")
+    qkeys, order = torch.sort(torch.where(valid, h, INT64_MAX))
+    mark("sort")
+    vals = merge.merge_join(tkeys, tcnt, size, qkeys, order.to(torch.int32))
+    mark("join")
+    return vals, valid
+
+
+def _cumsum0(mask):
+    """[0, cumsum(mask)] as int32."""
+    z = torch.zeros(1, dtype=torch.int32, device=mask.device)
+    return torch.cat([z, torch.cumsum(mask, 0, dtype=torch.int32)])
+
+
+def qv_chunk_stats(vals, has, meta, ns, M, min_frac):
+    """Per-segment sums and the three region histograms of one chunk
+    (countstep._qv_chunk_stats).  meta i32 [2*ns+6]: bounds[ns+1],
+    elig[ns], head_end, inc_start, j_inc, head_elig, cont.  Returns
+    (hg, hi_, hh int64 [1024], tot, non0 int32 [ns])."""
+    dev = vals.device
+    bounds = meta[:ns + 1]
+    elig = meta[ns + 1:2 * ns + 1] != 0
+    head_end = meta[2 * ns + 1]
+    inc_start = meta[2 * ns + 2]
+    ch = _cumsum0(has)
+    cn = _cumsum0(has & (vals > 0))
+    bc = torch.clamp(bounds, 0, M).to(torch.int64)
+    tot = ch[bc[1:]] - ch[bc[:-1]]
+    non0 = cn[bc[1:]] - cn[bc[:-1]]
+    # the min_frac gate compares in float64, as qv.c:83 does
+    gate = ((non0.to(torch.float64) >= tot.to(torch.float64) * min_frac)
+            & elig)
+    # expand the per-seg gate to lanes: its deltas added at the segment
+    # starts, then a running sum
+    gi = gate.to(torch.int32)
+    gd = gi - torch.cat([gi.new_zeros(1), gi[:-1]])
+    d = torch.zeros(M + 1, dtype=torch.int32, device=dev)
+    d.index_add_(0, bc[:-1], gd)
+    gl = torch.cumsum(d[:M], 0, dtype=torch.int32) > 0
+    # region-coded histogram: [0,1024) gated complete lanes, [2048,3072)
+    # the tail segment that continues into the next chunk, [3072,4096)
+    # the head segment that continues the carried sequence, the rest
+    # dead; one sort and one searchsorted (no host sync)
+    t = torch.clamp(vals, 0, YAK_MAX_COUNT)
+    lane = torch.arange(M, dtype=torch.int32, device=dev)
+    key = torch.where(~has, 8000,
+                      torch.where(lane < head_end, 3072 + t,
+                                  torch.where(lane >= inc_start, 2048 + t,
+                                              torch.where(gl, t, 1500))))
+    sk = torch.sort(key).values
+    probes = torch.cat([torch.arange(1025, dtype=torch.int32, device=dev),
+                        torch.arange(2048, 4097, dtype=torch.int32,
+                                     device=dev)])
+    edges = torch.searchsorted(sk, probes)
+    hg = torch.diff(edges[:1025])
+    hi_ = torch.diff(edges[1025:2050])
+    hh = torch.diff(edges[2049:])
+    return hg, hi_, hh, tot, non0
+
+
+def qv_fold_step(state, meta, hg, hi_, hh, tot, non0, ns, min_frac):
+    """One chunk's transition of the device-resident qv fold
+    (countstep._qv_fold_step): settle the carried sequence against its
+    completed totals, add the gated histogram, open the next carry from
+    the tail region.  The middle piece is head_end == inc_start == 0
+    with a live carry (c_tot >= 0; c_tot == -1 is "no carry")."""
+    cnt, c_tot, c_non0, c_hist = state
+    head_end = meta[2 * ns + 1]
+    inc_start = meta[2 * ns + 2]
+    # j_inc stays a 1-element index: indexing with a 0-d tensor reads
+    # it back to the host, which would wait for the card every chunk
+    j_inc = meta[2 * ns + 3:2 * ns + 4].to(torch.int64)
+    tot_j = tot.index_select(0, j_inc)[0]
+    non0_j = non0.index_select(0, j_inc)[0]
+    head_elig = meta[2 * ns + 4] != 0
+    cont = meta[2 * ns + 5] != 0
+    mid = (head_end == 0) & (inc_start == 0) & (c_tot >= 0)
+    settle = ~mid & (c_tot >= 0)
+    tot_c = c_tot + torch.where(mid, tot_j, tot[0])
+    non0_c = c_non0 + torch.where(mid, non0_j, non0[0])
+    g_c = ~(non0_c.to(torch.float64)
+            < tot_c.to(torch.float64) * min_frac) & head_elig
+    cnt = cnt + hg + torch.where(settle & g_c, c_hist + hh, 0)
+    # the host's cont flag, not inc_start < M: a record header in the
+    # chunk's last k-1 cells gives a zero-window tail piece whose carry
+    # must still open
+    new_active = cont | mid
+    n_tot = torch.where(mid, tot_c, tot_j)
+    n_non0 = torch.where(mid, non0_c, non0_j)
+    n_hist = torch.where(mid, c_hist + hi_, hi_)
+    return (cnt, torch.where(new_active, n_tot, -1),
+            torch.where(new_active, n_non0, 0),
+            torch.where(new_active, n_hist, 0))
+
+
+def qv_ek_markers(vals, has, M):
+    """-E markers (countstep._qv_ek_markers): the ascending lanes of the
+    windows that are extracted with count 0 or absent, cut to
+    QV_MAX_EK, and their true number."""
+    em = has & (vals <= 0)
+    lane = torch.arange(M, dtype=torch.int32, device=vals.device)
+    key = torch.sort(torch.where(em, lane, (1 << 31) - 1)).values
+    return key[:QV_MAX_EK], em.sum(dtype=torch.int32)
+
+
+def qv_join_post(vals, valid, meta, state, ns, M, min_frac, emit_ek):
+    """The qv post of one chunk (countstep.get_qv_join_post without its
+    order restore): the reduction and the fold.  Returns (cnt, c_tot,
+    c_non0, c_hist, tot, non0) and, with emit_ek, (markers, n) after."""
+    hg, hi_, hh, tot, non0 = qv_chunk_stats(vals, valid, meta, ns, M,
+                                            min_frac)
+    r = qv_fold_step(state, meta, hg, hi_, hh, tot, non0, ns,
+                     min_frac) + (tot, non0)
+    if emit_ek:
+        r = r + qv_ek_markers(vals, valid, M)
+    return r
+
+
+def chkerr_mark_mid(vals, valid, min_cnt, M):
+    """chkerr's run markers as planes for the compaction
+    (countstep.get_chkerr_mark_mid): a lane is low when its window is
+    valid and its count is below min_cnt (absent counts as low); each
+    low run's last lane keeps its lane number in khi and the run length
+    in the payload, every other lane is MARK_DROP.  Returns (khi int32
+    [M], runlen int32 [M], n int32 [])."""
+    low = valid & (vals < min_cnt)
+    lane = torch.arange(M, dtype=torch.int32, device=vals.device)
+    last_high = torch.cummax(torch.where(low, -1, lane), 0).values
+    runlen = lane - last_high
+    is_end = low & ~torch.cat([low[1:], low.new_zeros(1)])
+    khi = torch.where(is_end, lane, MARK_DROP)
+    return khi, runlen, is_end.sum(dtype=torch.int32)
+
+
+def run_mark_compact(khi, pay):
+    """Marker compaction (countstep.run_mark_compact with
+    get_mark_slice_post): (khi lane-or-MARK_DROP, payload) -> (lanes,
+    payloads) int32 [M], the kept lanes first in lane order.  The JAX
+    version cuts the planes to the marker budget; here the caller cuts
+    its copy to the host, so a chunk with more markers than the budget
+    still finds all of them on the device.  khi also fills the
+    compaction's middle plane, which nothing reads."""
+    ohi, _olo, opay, _n = compact.compact(khi, khi, pay)
+    return ohi, opay

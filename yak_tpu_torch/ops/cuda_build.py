@@ -6,6 +6,8 @@ library under `build/yak_tpu_torch/` at the repository root, named by
 the hash of the source and the flags, and loaded with ctypes.  A changed
 source builds anew; an unchanged one loads the library already built.
 Nothing is built when a module is imported: the first launch builds.
+`load_all` builds several sources with one nvcc process each, side by
+side (one thread each).
 """
 
 import ctypes
@@ -15,6 +17,7 @@ import shutil
 import subprocess
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 PKG_DIR = Path(__file__).resolve().parent.parent
@@ -65,3 +68,10 @@ def load(name):
         secs = time.time() - t0
     _LOADED[name] = (ctypes.CDLL(str(out)), secs)
     return _LOADED[name]
+
+
+def load_all(names):
+    """load() for several sources, one thread each, so their nvcc
+    processes run side by side.  Returns {name: (CDLL, seconds)}."""
+    with ThreadPoolExecutor(len(names)) as pool:
+        return dict(zip(names, pool.map(load, names)))

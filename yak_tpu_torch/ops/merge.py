@@ -1,5 +1,6 @@
-"""The merge-reduce of the count path: fold a sorted k-mer batch into the
-sorted count table.
+"""The merge-path kernel's two modes: the merge-reduce of the count path
+(fold a sorted k-mer batch into the sorted count table) and the JOIN of
+the lookup workloads (each sorted query's table count).
 
 `merge_reduce` is the port of the TPU kernel
 `yak_tpu/ops/pallas_merge.py::_make_kernel` in count mode.  For CUDA
@@ -23,9 +24,23 @@ n_new int32 []): every surviving key once, ascending, with count
 min(table count + batch lanes, 1023).  new_size is counted before
 truncation to cap, so new_size > cap is the overflow flag; lanes beyond
 min(new_size, cap) are unspecified.
+
+`merge_join` is the port of the same TPU kernel's lookup mode
+(`lookup=True`, with `countstep.plookup_prep` and `plookup_post`); its
+kernel is the `yak_merge_join` entry point of the same source.  Contract:
+
+  tkeys, tcnt, size   the table, as above
+  qkeys int64 [B]     query keys, ascending; invalid lanes = INT64_MAX
+  qidx  int32 [B]     the original lane of each sorted query (a
+                      permutation of [0, B))
+
+returns vals int32 [B] in ORIGINAL lane order: vals[qidx[j]] is the
+table count where tkeys[i] == qkeys[j] for some i < size, else -1;
+invalid lanes give -1.
 """
 
 import ctypes
+import functools
 
 import torch
 
@@ -33,26 +48,31 @@ from yak_tpu_torch.ops import sorttable as st
 from yak_tpu_torch.ops.keys import INT64_MAX
 
 
-def _check(tkeys, tcnt, size, bkeys):
+def _check(tkeys, tcnt, size, bkeys, fn="merge_reduce"):
     for name, t, dt in (("tkeys", tkeys, torch.int64),
                         ("tcnt", tcnt, torch.int32),
                         ("size", size, torch.int32),
-                        ("bkeys", bkeys, torch.int64)):
+                        ("keys", bkeys, torch.int64)):
         if t.dtype != dt:
-            raise TypeError(f"merge_reduce: {name} must be {dt}, "
-                            f"got {t.dtype}")
+            raise TypeError(f"{fn}: {name} must be {dt}, got {t.dtype}")
         if not t.is_contiguous():
-            raise ValueError(f"merge_reduce: {name} must be contiguous")
+            raise ValueError(f"{fn}: {name} must be contiguous")
         if t.device != tkeys.device:
-            raise ValueError(f"merge_reduce: {name} is on {t.device}, "
-                             f"tkeys on {tkeys.device}")
+            raise ValueError(f"{fn}: {name} is on {t.device}, tkeys on "
+                             f"{tkeys.device}")
     if tkeys.dim() != 1 or bkeys.dim() != 1 or tcnt.shape != tkeys.shape:
-        raise ValueError("merge_reduce: tkeys/tcnt must be 1-D of one "
-                         "length and bkeys 1-D")
+        raise ValueError(f"{fn}: tkeys/tcnt must be 1-D of one length and "
+                         f"the batch keys 1-D")
     if size.numel() != 1:
-        raise ValueError("merge_reduce: size must hold one value")
+        raise ValueError(f"{fn}: size must hold one value")
     if tkeys.numel() == 0:
-        raise ValueError("merge_reduce: the table needs capacity >= 1")
+        raise ValueError(f"{fn}: the table needs capacity >= 1")
+
+
+def _raise_launch(lib, err, name):
+    if err != 0:
+        msg = lib.yak_cuda_error_string(err).decode()
+        raise RuntimeError(f"{name} kernel launch failed: {msg}")
 
 
 def merge_reduce(tkeys, tcnt, size, bkeys, create=True):
@@ -69,6 +89,7 @@ def merge_reduce(tkeys, tcnt, size, bkeys, create=True):
 merge_reduce.launches = 0    # kernel launches, counted in _launch
 
 
+@functools.cache
 def _library():
     from yak_tpu_torch.ops import cuda_build
 
@@ -80,6 +101,11 @@ def _library():
         p, p, p, p,                       # outputs
         p]                                # stream
     lib.yak_merge_reduce.restype = i32
+    lib.yak_merge_join.argtypes = [
+        p, p, p, i64, p, p, i64, i64,     # inputs, ntiles
+        p, p, p,                          # scratch, output
+        p]                                # stream
+    lib.yak_merge_join.restype = i32
     lib.yak_merge_reduce_tile.argtypes = []
     lib.yak_merge_reduce_tile.restype = i32
     lib.yak_cuda_error_string.argtypes = [i32]
@@ -115,9 +141,7 @@ def _launch(tkeys, tcnt, size, bkeys, create):
             part.data_ptr(), nb.data_ptr(), seg.data_ptr(), cnt.data_ptr(),
             carry.data_ptr(), out_off.data_ptr(), okeys.data_ptr(),
             ocnt.data_ptr(), new_size.data_ptr(), n_new.data_ptr(), stream)
-    if err != 0:
-        msg = lib.yak_cuda_error_string(err).decode()
-        raise RuntimeError(f"merge_reduce kernel launch failed: {msg}")
+    _raise_launch(lib, err, "merge_reduce")
     merge_reduce.launches += 1
     return okeys, ocnt, new_size, n_new
 
@@ -131,3 +155,62 @@ def merge_reduce_plain(tkeys, tcnt, size, bkeys, create=True):
         tkeys, tcnt, size, bkeys, torch.ones_like(bkeys, dtype=torch.int32),
         bkeys != INT64_MAX, create)
     return okeys, ocnt, new_size, n_new.to(torch.int32)
+
+
+def _check_join(tkeys, tcnt, size, qkeys, qidx):
+    _check(tkeys, tcnt, size, qkeys, "merge_join")
+    if qidx.dtype != torch.int32 or not qidx.is_contiguous():
+        raise TypeError("merge_join: qidx must be contiguous int32")
+    if qidx.device != tkeys.device:
+        raise ValueError(f"merge_join: qidx is on {qidx.device}, tkeys on "
+                         f"{tkeys.device}")
+    if qidx.shape != qkeys.shape:
+        raise ValueError("merge_join: qidx and qkeys differ in shape")
+
+
+def merge_join(tkeys, tcnt, size, qkeys, qidx):
+    """Each sorted query's table count, or -1, in original lane order
+    (contract above)."""
+    _check_join(tkeys, tcnt, size, qkeys, qidx)
+    if tkeys.device.type == "cpu":
+        return merge_join_plain(tkeys, tcnt, size, qkeys, qidx)
+    if tkeys.device.type != "cuda":
+        raise ValueError(f"merge_join: no kernel for device {tkeys.device}")
+    return _launch_join(tkeys, tcnt, size, qkeys, qidx)
+
+
+merge_join.launches = 0    # kernel launches, counted in _launch_join
+
+
+def _launch_join(tkeys, tcnt, size, qkeys, qidx):
+    lib = _library()
+    dev = tkeys.device
+    cap, nq = tkeys.numel(), qkeys.numel()
+    ntiles = max(1, -(-(cap + nq) // lib.yak_merge_reduce_tile()))
+    part = torch.empty(ntiles + 1, dtype=torch.int64, device=dev)
+    nb = torch.empty(1, dtype=torch.int64, device=dev)
+    vals = torch.empty(nq, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.yak_merge_join(
+            tkeys.data_ptr(), tcnt.data_ptr(), size.data_ptr(), cap,
+            qkeys.data_ptr(), qidx.data_ptr(), nq, ntiles, part.data_ptr(),
+            nb.data_ptr(), vals.data_ptr(), stream)
+    _raise_launch(lib, err, "merge_join")
+    merge_join.launches += 1
+    return vals
+
+
+def merge_join_plain(tkeys, tcnt, size, qkeys, qidx):
+    """The plain torch version of the JOIN: the table masked to INT64_MAX
+    beyond `size`, one searchsorted, a gather and an equality test, then
+    the store at qidx.  No host sync."""
+    cap = tkeys.shape[0]
+    lane = torch.arange(cap, dtype=torch.int64, device=tkeys.device)
+    masked = torch.where(lane < size.to(torch.int64), tkeys, INT64_MAX)
+    pos = torch.searchsorted(masked, qkeys).clamp_(max=cap - 1)
+    hit = (masked[pos] == qkeys) & (qkeys != INT64_MAX)
+    found = torch.where(hit, tcnt[pos], -1)
+    vals = torch.empty_like(found)
+    vals[qidx.to(torch.int64)] = found
+    return vals

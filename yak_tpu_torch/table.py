@@ -8,9 +8,12 @@ one fold late, and an overflowed fold is replayed against the preserved
 pre-fold table after doubling its capacity.  Reads (items, hist, shrink,
 dump) flush first.
 
-Not ported here: the Bloom filter (`-b`), the wide k >= 32 path,
-lookups, the table algebra and the OR-merge restore into an existing
-table (ROADMAP.md Queue 1).  The TPU package's transient-fault retry
+The lookup workloads (qv, chkerr) read `keys`, `cnt` and `size` after
+`flush` and JOIN their queries against them (`ops/countstep.lookup_chunk`).
+
+Not ported here: the Bloom filter (`-b`), the wide k >= 32 path, the
+table algebra and the OR-merge restore into an existing table
+(ROADMAP.md Queue 1).  The TPU package's transient-fault retry
 (`yak_tpu/table.py:493-502`) is deliberately absent: on the card it
 would hide a fault.
 """
