@@ -57,12 +57,40 @@ Phases, in order; any failure exits non-zero:
   9. the CLI's qv -p and chkerr -c 12 on the card and on the CPU (called in
      this process, chunk 16384 so sequences span chunks) must print
      byte-identical stdout for phase 5's FASTQ and FASTA, against a
-     table counted from the FASTQ.
+     table counted from the FASTQ;
+ 10. the -b Bloom two-pass at real size: bench.py's bloom workload (phase
+     4's 400,000 reads as single-line FASTA, chunk 2^23, cap 2^23) through
+     models.count.count as the literal two-pass over two paths (hard
+     links) to that file, at -b24 (the sentinel gate post through the
+     compaction kernel, the weighted merge in pass 1, the count-mode
+     merge in pass 2) and at -b37 (a 16 GiB filter, the sparse gate
+     post updating it in place), then the same-file shortcut; each must
+     give 2,044,839 distinct k-mers and histogram digest c94d8a6166ad
+     (bench.py:514-515) and launch its kernels; prints walls, bench.py's
+     96,000,000 extraction units over the wall, and a per-fold split on
+     the device timeline (gate post, merge) with the device idle share;
+ 11. the k=33 count at real size: phase 4's chunks through
+     KmerTable(33, cap_log2=23, flush_lanes=4*4194281), the wide merge
+     in every fold; gates 6,412,500 and a56a84001d46 (bench.py:565-566);
+ 12. the overflow replays: the -b24 literal two-pass and the k=33 count
+     again from a 2^21-lane table, which must grow and pass the same
+     gates (the -b24 replay through the gated fold's kept filter);
+ 13. the weighted and wide modes of the merge kernel vs the plain torch
+     version on the card: the mode cases of tests/torch_merge_cases.py
+     and every merge call captured from phases 10-12 (count-mode calls
+     of pass 2 included), and every compaction call of the sentinel gate
+     post; timed at the main path's shapes;
+ 14. the CLI's count -b24 (two files) and count -k33 in this process on
+     the card and on the CPU must dump byte-identical .yak files.
 
-The last two lines of stdout are a JSON line of per-kernel results (`ms`
-and `plain_ms` back to back, `device_ms` and `plain_device_ms` device
-only; see time_ms) and the contract line {"ok": true, "device": {...}}.
-Imports no JAX.
+The last two lines of stdout are a JSON line of per-kernel results
+(`launches` summed over the paths that drive the kernel, each with the
+counts set to 0 just before it and read just after, and by path under
+`launches_by_path`; `ms` and `plain_ms` back to back, `device_ms` and
+`plain_device_ms` device only, see time_ms; `bound_ms` the bytes the
+call must move over the H100's 3.35 TB/s; `library_ms` one PyTorch call
+computing the same function, where there is one) and the contract line
+{"ok": true, "device": {...}}.  Imports no JAX.
 """
 
 import contextlib
@@ -91,6 +119,13 @@ KERNELS = {
     "merge_reduce": {"name": "merge_reduce", "route": "cuda",
                      "source": "yak_tpu_torch/csrc/merge_reduce.cu",
                      "replaces": "yak_tpu/ops/pallas_merge.py:155"},
+    "merge_reduce_weighted": {"name": "merge_reduce_weighted",
+                              "route": "cuda",
+                              "source": "yak_tpu_torch/csrc/merge_reduce.cu",
+                              "replaces": "yak_tpu/ops/pallas_merge.py:155"},
+    "merge_reduce_wide": {"name": "merge_reduce_wide", "route": "cuda",
+                          "source": "yak_tpu_torch/csrc/merge_reduce.cu",
+                          "replaces": "yak_tpu/ops/pallas_merge.py:155"},
     "merge_join": {"name": "merge_join", "route": "cuda",
                    "source": "yak_tpu_torch/csrc/merge_reduce.cu",
                    "replaces": "yak_tpu/ops/pallas_merge.py:241"},
@@ -103,6 +138,13 @@ QV_SUM = 48_000_000                                    # bench.py:251
 N_CONTIGS, CONTIG_LEN = 20, 100_000
 SUB_EVERY = 2_000          # one substitution per 2 kbp of each contig
 NOVEL = (10, 30_000, 70_000)   # contig, novel stretch [30 kbp, 70 kbp)
+BLOOM_DISTINCT = 2_044_839           # bench.py:514
+BLOOM_HIST = "c94d8a6166ad"          # bench.py:515
+K33 = 33
+K33_DISTINCT = 6_412_500             # bench.py:565
+K33_HIST = "a56a84001d46"            # bench.py:566
+HBM_BYTES_PER_S = 3.35e12            # H100 SXM device memory rate
+REPLAY_CAP_LOG2 = 21                 # phase 12's first table capacity
 
 
 def log(msg):
@@ -152,13 +194,14 @@ def time_ms(fn, reps):
     return tuple(out)
 
 
-def compare(merge, args, create, label):
+def compare(merge, args, create, label, weights=None, wide=False):
     """Kernel vs plain on one input; returns the max abs difference
     (0 when equal) after asserting equality."""
     tkeys, tcnt, size, bkeys = args
-    ok, oc, ns, nn = merge.merge_reduce(tkeys, tcnt, size, bkeys, create)
+    ok, oc, ns, nn = merge.merge_reduce(tkeys, tcnt, size, bkeys, create,
+                                        weights=weights, wide=wide)
     pk, pc, ps, pn = merge.merge_reduce_plain(tkeys, tcnt, size, bkeys,
-                                              create)
+                                              create, weights)
     torch.cuda.synchronize()
     cap = tkeys.numel()
     live = min(int(ps), cap)
@@ -187,16 +230,16 @@ class _Spy:
         if attr != self.name:
             return fn
 
-        def spy(*args):
-            self.calls.append(args)
-            return fn(*args)
+        def spy(*args, **kw):
+            self.calls.append((args, kw))
+            return fn(*args, **kw)
         return spy
 
 
 @contextlib.contextmanager
 def captured(module_attr, name):
     """Inside the block, ops.countstep's calls of <module_attr>.<name>
-    are recorded; yields the list of their argument tuples.  The
+    are recorded; yields the list of their (args, kwargs).  The
     wrappers never write into their inputs, so the arguments stay valid
     after the calls."""
     from yak_tpu_torch.ops import countstep
@@ -215,7 +258,7 @@ def fold_inputs(chunks, dev):
     (tkeys, tcnt, size, bkeys, create)."""
     with captured("merge", "merge_reduce") as calls:
         run_count(chunks, dev)
-    return calls
+    return [args for args, _kw in calls]
 
 
 def kernel_checks(dev, chunks):
@@ -249,27 +292,60 @@ def kernel_checks(dev, chunks):
     folds = fold_inputs(chunks, dev)
     if not folds:
         raise AssertionError("the count path made no merge-reduce call")
-    times = []
+    times = [time_merge(merge, args, {}, f"count fold {i}")
+             for i, args in enumerate(folds)]
     for i, args in enumerate(folds):
-        tkeys, tcnt, size, bkeys, create = args
-        label = (f"count fold {i} (cap {tkeys.numel()}, live {int(size)}, "
-                 f"B {bkeys.numel()})")
-        err = max(err, compare(merge, args[:4], create, label))
-        ms = time_ms(lambda: merge.merge_reduce(*args), 20)
-        plain_ms = time_ms(lambda: merge.merge_reduce_plain(*args), 5)
-        log(f"  {label}: kernel {ms[0]:.4f} ms, plain torch "
-            f"{plain_ms[0]:.4f} ms back to back (device only: "
-            f"{ms[1]:.4f} / {plain_ms[1]:.4f} ms)")
-        times.append(ms + plain_ms)
+        err = max(err, compare(merge, args[:4], args[4],
+                               f"count fold {i}"))
     # the increment-only mode on the last fold's real inputs
     err = max(err, compare(merge, folds[-1][:4], False,
                            f"count fold {len(folds) - 1}, create=False"))
-    ms, device_ms, plain_ms, plain_device_ms = (
-        sum(t[i] for t in times) / len(times) for i in range(4))
-    log(f"  mean over the {len(folds)} folds: kernel {ms:.4f} ms, plain "
-        f"torch {plain_ms:.4f} ms back to back (device only: "
-        f"{device_ms:.4f} / {plain_device_ms:.4f} ms)")
-    return err, ms, plain_ms, device_ms, plain_device_ms
+    return mean_times(times, err, f"the {len(folds)} count folds")
+
+
+def merge_bound_ms(args, kw, new_size):
+    """The least time of one merge-reduce call on the H100: the bytes it
+    must move (the live table's keys and counts read, the valid batch
+    keys and weights read, the surviving keys and counts written) over
+    the device memory rate.  Its arithmetic is a few compares a lane."""
+    from yak_tpu_torch.ops.keys import INT64_MAX
+
+    tkeys, _tcnt, size, bkeys = args[:4]
+    nb = int((bkeys != INT64_MAX).sum())
+    per_lane = 12 if kw.get("weights") is not None else 8
+    moved = (12 * min(int(size), tkeys.numel()) + per_lane * nb
+             + 12 * min(new_size, tkeys.numel()))
+    return moved / HBM_BYTES_PER_S * 1e3
+
+
+def time_merge(merge, args, kw, label):
+    """Times one captured merge-reduce call, kernel and plain version:
+    (ms, device_ms, plain_ms, plain_device_ms, bound_ms)."""
+    tkeys, tcnt, size, bkeys, create = args
+    weights = kw.get("weights")
+    ms = time_ms(lambda: merge.merge_reduce(*args, **kw), 20)
+    plain_ms = time_ms(lambda: merge.merge_reduce_plain(*args, weights), 5)
+    new_size = int(merge.merge_reduce_plain(*args, weights)[2])
+    bound = merge_bound_ms(args, kw, new_size)
+    log(f"  {label} (cap {tkeys.numel()}, live {int(size)}, B "
+        f"{bkeys.numel()}, create {bool(create)}, weights "
+        f"{weights is not None}, wide {bool(kw.get('wide'))}): kernel "
+        f"{ms[0]:.4f} ms, plain torch {plain_ms[0]:.4f} ms back to back "
+        f"(device only: {ms[1]:.4f} / {plain_ms[1]:.4f} ms); bound "
+        f"{bound:.4f} ms")
+    return ms + plain_ms + (bound,)
+
+
+def mean_times(times, err, what):
+    """A kernels-line entry from several time_merge results."""
+    ms, device_ms, plain_ms, plain_device_ms, bound = (
+        sum(t[i] for t in times) / len(times) for i in range(5))
+    log(f"  mean over {what}: kernel {ms:.4f} ms, plain torch "
+        f"{plain_ms:.4f} ms back to back (device only: {device_ms:.4f} / "
+        f"{plain_device_ms:.4f} ms), bound {bound:.4f} ms")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "device_ms": device_ms, "plain_device_ms": plain_device_ms,
+            "bound_ms": bound, "bound_by": "bytes", "library_ms": None}
 
 
 # -- phase 4 ------------------------------------------------------------
@@ -304,15 +380,15 @@ def pack_chunks(reads):
     return chunks
 
 
-def run_count(chunks, dev, marks=None, cap_log2=23):
-    """Count `chunks` into a new table on `dev`.  With `marks` (a list),
+def run_count(chunks, dev, marks=None, cap_log2=23, k=K):
+    """Count `chunks` into a new k-mer table on `dev`.  With `marks` (a list),
     appends (name, CUDA event or None, host perf_counter) at each chunk's
     insert ("insert"), at each fold phase as it is queued (the table's
     phase names), before the final flush ("flush") and after the last
     synchronize ("end")."""
     from yak_tpu_torch.table import KmerTable
 
-    table = KmerTable(K, cap_log2=cap_log2, flush_lanes=4 * 4194281,
+    table = KmerTable(k, cap_log2=cap_log2, flush_lanes=4 * 4194281,
                       cap_hinted=True, device=dev)
 
     def host_mark(name):
@@ -408,15 +484,15 @@ def count_path(dev, card, chunks):
     return launches, table
 
 
-def check_gates(table, note):
+def check_gates(table, note, total=TOTAL_GATE, digest=HIST_GATE):
     tot = table.tot
     hd = hashlib.md5(np.ascontiguousarray(table.hist(), np.int64)
                      .tobytes()).hexdigest()[:12]
     log(f"  distinct {tot}, hist digest {hd}, {note}")
-    if tot != TOTAL_GATE:
-        raise AssertionError(f"wrong distinct count {tot} != {TOTAL_GATE}")
-    if hd != HIST_GATE:
-        raise AssertionError(f"wrong histogram digest {hd} != {HIST_GATE}")
+    if tot != total:
+        raise AssertionError(f"wrong distinct count {tot} != {total}")
+    if hd != digest:
+        raise AssertionError(f"wrong histogram digest {hd} != {digest}")
 
 
 # -- phase 5 ------------------------------------------------------------
@@ -625,6 +701,7 @@ def lookup_kernel_checks(dev, table, paths, card):
     # the lookup path's own calls, captured from a warm-up run of each
     with captured("merge", "merge_join") as qv_joins:
         cnt = run_qv(qv_opts(), paths[100], table, out=io.StringIO())
+    qv_joins = [args for args, _kw in qv_joins]
     log(f"  qv warm-up set: cnt sum {int(cnt.sum())}, "
         f"{len(qv_joins)} JOIN calls captured")
     ch_joins, ch_compacts = [], []
@@ -632,8 +709,8 @@ def lookup_kernel_checks(dev, table, paths, card):
         with captured("merge", "merge_join") as js, \
                 captured("compact", "compact") as cs:
             text = run_chkerr(table, paths[name], chunk)
-        ch_joins += js
-        ch_compacts += cs
+        ch_joins += [args for args, _kw in js]
+        ch_compacts += [args for args, _kw in cs]
         log(f"  chkerr {name}: {text.count(chr(10))} rows, {len(js)} JOIN "
             f"and {len(cs)} compaction calls captured")
     if not qv_joins or not ch_compacts:
@@ -647,23 +724,51 @@ def lookup_kernel_checks(dev, table, paths, card):
     log(f"  kernel == plain on all {len(qv_joins) + len(ch_joins)} captured "
         f"JOIN calls and {len(ch_compacts)} compaction calls")
 
-    out = {}
-    for name, calls, kernel, plain, label in (
-            ("merge_join", qv_joins, merge.merge_join,
-             merge.merge_join_plain,
-             lambda a: f"JOIN (cap {a[0].numel()}, live {int(a[2])}, B "
-                       f"{a[3].numel()})"),
-            ("compact", ch_compacts, compact.compact, compact.compact_plain,
-             lambda a: f"compaction (n {a[0].numel()}, kept "
-                       f"{int((a[0] >= 0).sum())})")):
-        args = max(calls, key=lambda a: a[-2].numel())
-        ms = time_ms(lambda: kernel(*args), 20)
-        plain_ms = time_ms(lambda: plain(*args), 5)
-        log(f"  {label(args)}: kernel {ms[0]:.4f} ms, plain torch "
-            f"{plain_ms[0]:.4f} ms back to back (device only: "
-            f"{ms[1]:.4f} / {plain_ms[1]:.4f} ms) [{card}]")
-        out[name] = (errs[name], ms[0], plain_ms[0], ms[1], plain_ms[1])
+    args = max(qv_joins, key=lambda a: a[3].numel())
+    live, nq = int(args[2]), args[3].numel()
+    # the live table's keys and counts, the query keys and lanes read
+    # once, one value written a query
+    out = {"merge_join": time_kernel(
+        merge.merge_join, merge.merge_join_plain, args,
+        (12 * live + 16 * nq) / HBM_BYTES_PER_S * 1e3, None,
+        f"JOIN (cap {args[0].numel()}, live {live}, B {nq})", card)}
+    out["merge_join"]["max_abs_err"] = errs["merge_join"]
+    out["compact"] = time_compact(max(ch_compacts,
+                                      key=lambda a: a[0].numel()),
+                                  "compaction (chkerr)", card)
+    out["compact"]["max_abs_err"] = errs["compact"]
     return out
+
+
+def time_kernel(kernel, plain, args, bound, library, label, card):
+    """A kernels-line entry for one call: the kernel, its plain version
+    and (`library`, a callable or None) one PyTorch call computing the
+    same function, timed on `args`."""
+    ms = time_ms(lambda: kernel(*args), 20)
+    plain_ms = time_ms(lambda: plain(*args), 5)
+    lib_ms = None if library is None else time_ms(library, 20)[0]
+    log(f"  {label}: kernel {ms[0]:.4f} ms, plain torch {plain_ms[0]:.4f} "
+        f"ms back to back (device only: {ms[1]:.4f} / {plain_ms[1]:.4f} "
+        f"ms), bound {bound:.4f} ms, library "
+        f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'} [{card}]")
+    return {"max_abs_err": 0, "ms": ms[0], "plain_ms": plain_ms[0],
+            "device_ms": ms[1], "plain_device_ms": plain_ms[1],
+            "bound_ms": bound, "bound_by": "bytes", "library_ms": lib_ms}
+
+
+def time_compact(args, label, card):
+    """time_kernel for one compaction call.  Bound: khi read once, klo
+    and v read and all three planes written for each kept lane.  Library
+    call: boolean-mask indexing of the stacked planes."""
+    from yak_tpu_torch.ops import compact
+
+    khi, klo, v = args
+    n, kept = khi.numel(), int((khi >= 0).sum())
+    return time_kernel(
+        compact.compact, compact.compact_plain, args,
+        (4 * n + 20 * kept) / HBM_BYTES_PER_S * 1e3,
+        lambda: torch.stack([khi, klo, v])[:, khi >= 0],
+        f"{label} (n {n}, kept {kept})", card)
 
 
 class _Timeline:
@@ -839,6 +944,317 @@ def lookup_cli_check():
         os.rmdir(d)
 
 
+# -- phases 10-14: the -b two-pass and k >= 32 ---------------------------
+
+def reset_counts():
+    """Every kernel launch count to 0."""
+    from yak_tpu_torch.ops import compact, merge
+
+    merge.merge_reduce.launches = 0
+    for mode in merge.merge_reduce.mode_launches:
+        merge.merge_reduce.mode_launches[mode] = 0
+    merge.merge_join.launches = 0
+    compact.compact.launches = 0
+
+
+def read_counts():
+    """The launch counts by kernels-line entry."""
+    from yak_tpu_torch.ops import compact, merge
+
+    modes = merge.merge_reduce.mode_launches
+    return {"merge_reduce": modes["count"],
+            "merge_reduce_weighted": modes["weighted"],
+            "merge_reduce_wide": modes["wide"],
+            "merge_join": merge.merge_join.launches,
+            "compact": compact.compact.launches}
+
+
+def check_launched(counts, needed, what):
+    missing = [name for name in needed if counts[name] <= 0]
+    log(f"  launches in {what}: " + ", ".join(
+        f"{name} {n}" for name, n in counts.items() if n))
+    if missing:
+        raise AssertionError(f"{what} never launched {', '.join(missing)}")
+
+
+class _FoldTimeline:
+    """Stands in for ops.countstep inside the table module: marks each
+    fold's phases with a CUDA event and the host clock ("start" as the
+    fold is queued, then the table's phase names: "extract", "sort",
+    "gate" on a gated fold, "merge", "finalize")."""
+
+    def __init__(self, countstep):
+        self.countstep, self.marks = countstep, []
+
+    def __getattr__(self, attr):
+        return getattr(self.countstep, attr)
+
+    def mark(self, name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.marks.append((name, ev, time.perf_counter()))
+
+    def count_step(self, *args, **kw):
+        self.mark("start")
+        kw["hook"] = self.mark
+        return self.countstep.count_step(*args, **kw)
+
+
+@contextlib.contextmanager
+def fold_timeline():
+    """Inside the block, every fold of every KmerTable is marked; yields
+    the _FoldTimeline."""
+    from yak_tpu_torch import table as table_mod
+
+    tl = _FoldTimeline(table_mod.countstep)
+    table_mod.countstep = tl
+    try:
+        yield tl
+    finally:
+        table_mod.countstep = tl.countstep
+
+
+def fold_split(marks, wall_s, card, what):
+    """Per-fold device spans of a marked run, their sums by phase, and
+    the device busy and idle share of the wall."""
+    folds, cur = [], None
+    for m in marks:
+        if m[0] == "start":
+            cur = [m]
+            folds.append(cur)
+        else:
+            cur.append(m)
+    by_phase, busy = {}, 0.0
+    for i, f in enumerate(folds):
+        spans = [(b[0], a[1].elapsed_time(b[1])) for a, b in zip(f, f[1:])]
+        busy += sum(ms for _n, ms in spans)
+        for name, ms in spans:
+            by_phase.setdefault(name, []).append(ms)
+        log(f"  {what} fold {i} device: " + ", ".join(
+            f"{n} {ms:.4f} ms" for n, ms in spans))
+    log(f"  {what}: {len(folds)} folds; per fold on the device " + ", ".join(
+        f"{n} {min(v):.4f}-{max(v):.4f} ms (sum {sum(v):.4f})"
+        for n, v in by_phase.items()) + f"; device busy {busy:.4f} ms of "
+        f"{wall_s * 1e3:.4f} ms wall, idle {1 - busy / (wall_s * 1e3):.4f} "
+        f"[{card}]")
+
+
+def run_bloom(files, bf_shift, dev, cap_log2=23):
+    """bench.py's bloom workload through models.count.count."""
+    from yak_tpu_torch.models.count import CountOpts, count
+
+    opt = CountOpts(k=K, bf_shift=bf_shift, cap_log2=cap_log2,
+                    chunk_size=1 << 23, device=str(dev))
+    with contextlib.redirect_stderr(io.StringIO()):
+        table = count(files, opt)
+    torch.cuda.synchronize()
+    return table
+
+
+def bloom_paths(dev, card, d, reads):
+    """Phase 10; returns ({path: launch counts}, {path: captured merge
+    calls}, captured compaction calls of the -b24 gate posts)."""
+    fa = os.path.join(d, "bloom_reads.fa")
+    write_fasta(fa, reads)
+    link = os.path.join(d, "bloom_reads_link.fa")
+    os.link(fa, link)          # a second path, not a symlink: no shortcut
+    n_extract = 2 * N_READS * (READ_LEN - K + 1)   # bench.py:536
+    counts, merges, compacts = {}, {}, []
+    for name, bf_shift, files, needed in (
+            ("b24 literal", 24, [fa, link],
+             ("merge_reduce_weighted", "merge_reduce", "compact")),
+            ("b37 literal", 37, [fa, link],
+             ("merge_reduce_weighted", "merge_reduce")),
+            ("b24 shortcut", 24, [fa, fa], ("merge_reduce",))):
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        with fold_timeline() as tl, \
+                captured("merge", "merge_reduce") as ms, \
+                captured("compact", "compact") as cs:
+            t0 = time.perf_counter()
+            table = run_bloom(files, bf_shift, dev)
+            wall = time.perf_counter() - t0
+        counts[name] = read_counts()
+        check_gates(table, f"{name} -b{bf_shift}", BLOOM_DISTINCT,
+                    BLOOM_HIST)
+        check_launched(counts[name], needed, name)
+        log(f"  {name}: wall {wall:.4f} s, {n_extract / wall:.1f} "
+            f"extraction units/s (bench.py's 96,000,000 a pass pair), peak "
+            f"device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} "
+            f"GiB [{card}]")
+        fold_split(tl.marks, wall, card, name)
+        if name != "b24 shortcut":
+            merges[name] = ms
+        if name == "b24 literal":
+            compacts = [args for args, _kw in cs]
+        del table
+    return counts, merges, compacts
+
+
+def k33_path(dev, card, chunks):
+    """Phase 11; returns (launch counts, captured merge calls)."""
+    n_kmers = N_READS * (READ_LEN - K33 + 1)
+    reset_counts()
+    with fold_timeline() as tl, captured("merge", "merge_reduce") as ms:
+        t0 = time.perf_counter()
+        table = run_count(chunks, dev, k=K33)
+        wall = time.perf_counter() - t0
+    counts = read_counts()
+    check_gates(table, "k=33", K33_DISTINCT, K33_HIST)
+    check_launched(counts, ("merge_reduce_wide",), "the k=33 count")
+    log(f"  k=33 count wall {wall:.4f} s, {n_kmers / wall:.1f} k-mers/s "
+        f"[{card}]")
+    fold_split(tl.marks, wall, card, "k33")
+    return counts, ms
+
+
+def replay_paths(dev, chunks, d):
+    """Phase 12; returns ({path: launch counts}, {path: captured merge
+    calls})."""
+    fa = os.path.join(d, "bloom_reads.fa")
+    counts, merges = {}, {}
+    for name, run, total, digest, needed in (
+            ("b24 replay", lambda: run_bloom(
+                [fa, os.path.join(d, "bloom_reads_link.fa")], 24, dev,
+                cap_log2=REPLAY_CAP_LOG2), BLOOM_DISTINCT, BLOOM_HIST,
+             ("merge_reduce_weighted", "merge_reduce", "compact")),
+            ("k33 replay", lambda: run_count(
+                chunks, dev, cap_log2=REPLAY_CAP_LOG2, k=K33),
+             K33_DISTINCT, K33_HIST, ("merge_reduce_wide",))):
+        reset_counts()
+        with captured("merge", "merge_reduce") as ms:
+            t0 = time.perf_counter()
+            table = run()
+            secs = time.perf_counter() - t0
+        counts[name] = read_counts()
+        check_gates(table, f"{name}: grown from cap 2^{REPLAY_CAP_LOG2} to "
+                           f"{table.cap} lanes in {secs:.4f} s", total,
+                    digest)
+        check_launched(counts[name], needed, name)
+        if table.cap <= 1 << REPLAY_CAP_LOG2:
+            raise AssertionError(f"{name} never grew the table")
+        merges[name] = ms
+    return counts, merges
+
+
+def mode_kernel_checks(dev, merges, compacts, card):
+    """Phase 13: the mode cases, then every captured call; returns the
+    kernels-line entries of the weighted and wide modes and the
+    compaction's time at the sentinel post's shape."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_merge_cases import (MODE_CASES, SIGN, expected,
+                                   sorted_batch, sorted_table)
+    from yak_tpu_torch.ops import merge
+    from yak_tpu_torch.ops.keys import torch_to_u64, u64_to_torch
+
+    err = {"merge_reduce": 0, "merge_reduce_weighted": 0,
+           "merge_reduce_wide": 0}
+
+    def mode_of(kw):
+        return ("merge_reduce_wide" if kw.get("wide") else
+                "merge_reduce_weighted" if kw.get("weights") is not None
+                else "merge_reduce")
+
+    for name, build in MODE_CASES.items():
+        hs, cs, batch, valid, w, cap, create, wide = build()
+        tk, tc = sorted_table(hs, cs, cap, wide)
+        bk, bw = sorted_batch(batch, valid, w, wide)
+        args = (u64_to_torch(tk, dev), torch.from_numpy(tc).to(dev),
+                torch.tensor(len(hs), dtype=torch.int32, device=dev),
+                torch.from_numpy(bk).to(dev))
+        kw = {"weights": None if bw is None else torch.from_numpy(bw).to(dev),
+              "wide": wide}
+        e = compare(merge, args, create, name, **kw)
+        err[mode_of(kw)] = max(err[mode_of(kw)], e)
+        ok, oc, ns, nn = merge.merge_reduce(*args, create, **kw)
+        wk, wc, wsize, wnew = expected(hs, cs, batch, valid, cap, create, w,
+                                       wide)
+        keys = torch_to_u64(ok)[:len(wk)] ^ (SIGN if wide else np.uint64(0))
+        if not (int(ns) == wsize and int(nn) == wnew
+                and np.array_equal(keys, wk)
+                and np.array_equal(oc.cpu().numpy()[:len(wc)], wc)):
+            raise AssertionError(f"{name}: kernel != numpy contract")
+    n_calls = 0
+    for path, calls in merges.items():
+        for i, (args, kw) in enumerate(calls):
+            mode = mode_of(kw)
+            e = compare(merge, args[:4], args[4], f"{path} merge {i}", **kw)
+            err[mode] = max(err[mode], e)
+            n_calls += 1
+    log(f"  kernel == plain on the {len(MODE_CASES)} mode cases and all "
+        f"{n_calls} captured merge calls")
+    cerr = 0
+    for i, args in enumerate(compacts):
+        cerr = max(cerr, check_compact(args, f"sentinel compaction {i}"))
+    log(f"  compaction kernel == plain on all {len(compacts)} sentinel-post "
+        f"calls")
+
+    out = {}
+    for name, path, pick in (
+            ("merge_reduce_weighted", "b24 literal",
+             lambda kw: kw.get("weights") is not None),
+            ("merge_reduce_wide", "k33", lambda kw: kw.get("wide"))):
+        calls = [(a, kw) for a, kw in merges[path] if pick(kw)]
+        times = [time_merge(merge, a, kw, f"{path} {name} {i}")
+                 for i, (a, kw) in enumerate(calls)]
+        out[name] = mean_times(times, err[name],
+                               f"the {len(calls)} {path} calls [{card}]")
+    # pass 2's increment-only count-mode merges at the bloom shapes
+    calls = [(a, kw) for a, kw in merges["b24 literal"]
+             if kw.get("weights") is None]
+    mean_times([time_merge(merge, a, kw, f"b24 pass-2 merge {i}")
+                for i, (a, kw) in enumerate(calls)], err["merge_reduce"],
+               f"the {len(calls)} b24 pass-2 calls [{card}]")
+    if compacts:
+        time_compact(max(compacts, key=lambda a: a[0].numel()),
+                     "compaction (-b24 sentinel post)", card)
+    # the two -b24 gate posts on a pass-1 batch, from an empty filter
+    from yak_tpu_torch.ops import bloom, countstep
+
+    bkeys = next(a[3] for a, kw in merges["b24 literal"]
+                 if kw.get("weights") is not None)
+    bf = bloom.make_bloom(24, dev)
+    for post in (countstep.bloom_gate_sentinel_post,
+                 countstep.bloom_gate_post):
+        ms = time_ms(lambda: post(bkeys, bf, 10, 24, 4), 5)
+        log(f"  {post.__name__} at -b24 (B {bkeys.numel()}): {ms[0]:.4f} ms "
+            f"back to back, {ms[1]:.4f} ms device only [{card}]")
+    return out, err["merge_reduce"], cerr
+
+
+def count_cli_check():
+    """Phase 14: count -b24 over two files and count -k33 through the CLI
+    entry point, on the card and on the CPU."""
+    from yak_tpu_torch import cli
+
+    d = tempfile.mkdtemp(prefix="yak_tpu_torch_smoke_")
+    try:
+        fq, fa = write_inputs(d)
+        for args in (["-b24", fq, fa], ["-k33", fq]):
+            outs = {}
+            for devname in ("cuda", "cpu"):
+                out = os.path.join(d, f"out_{devname}.yak")
+                err = io.StringIO()
+                with contextlib.redirect_stderr(err):
+                    ret = cli.main(["count", "-K200k", "--device", devname,
+                                    "-o", out, *args])
+                if ret != 0:
+                    raise AssertionError(f"CLI count {args[0]} failed on "
+                                         f"{devname}: {err.getvalue()}")
+                with open(out, "rb") as f:
+                    outs[devname] = f.read()
+            if outs["cuda"] != outs["cpu"]:
+                raise AssertionError(f"count {args[0]}: CUDA and CPU dumps "
+                                     f"differ")
+            log(f"  count {args[0]}: CUDA and CPU dumps identical "
+                f"({len(outs['cuda'])} bytes, md5 "
+                f"{hashlib.md5(outs['cuda']).hexdigest()[:12]})")
+    finally:
+        for name in os.listdir(d):
+            os.unlink(os.path.join(d, name))
+        os.rmdir(d)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on the card",
@@ -870,8 +1286,9 @@ def main():
     log(f"  [{card}]")
 
     phase("4. count path at real size")
-    launches = {}
-    launches["merge_reduce"], table = count_path(dev, card, chunks)
+    by_path = {}
+    n, table = count_path(dev, card, chunks)
+    by_path["count"] = {"merge_reduce": n}
 
     phase("5. CLI on the card vs on the CPU")
     cli_check()
@@ -886,10 +1303,10 @@ def main():
         results.update(lookup_kernel_checks(dev, table, paths, card))
 
         phase("7. qv at real size")
-        launches["merge_join"] = qv_path(table, paths, card)
+        by_path["qv"] = {"merge_join": qv_path(table, paths, card)}
 
         phase("8. chkerr at real size")
-        launches["compact"] = chkerr_path(table, paths, card)
+        by_path["chkerr"] = {"compact": chkerr_path(table, paths, card)}
     finally:
         for name in os.listdir(d):
             os.unlink(os.path.join(d, name))
@@ -897,11 +1314,45 @@ def main():
 
     phase("9. lookup CLI on the card vs on the CPU")
     lookup_cli_check()
+    del table
+
+    d = tempfile.mkdtemp(prefix="yak_tpu_torch_bloom_")
+    try:
+        phase("10. the -b two-pass at real size")
+        counts, merges, compacts = bloom_paths(dev, card, d, reads)
+        by_path.update(counts)
+
+        phase("11. the k=33 count at real size")
+        by_path["k33"], merges["k33"] = k33_path(dev, card, chunks)
+
+        phase("12. the overflow replays from a 2^21-lane table")
+        counts, replayed = replay_paths(dev, chunks, d)
+        by_path.update(counts)
+        merges.update(replayed)
+    finally:
+        for name in os.listdir(d):
+            os.unlink(os.path.join(d, name))
+        os.rmdir(d)
+
+    phase("13. weighted and wide merge modes vs plain torch on the card")
+    modes, count_err, sent_err = mode_kernel_checks(dev, merges, compacts,
+                                                     card)
+    del merges, compacts
+    results.update(modes)
+    results["merge_reduce"]["max_abs_err"] = max(
+        results["merge_reduce"]["max_abs_err"], count_err)
+    results["compact"]["max_abs_err"] = max(
+        results["compact"]["max_abs_err"], sent_err)
+
+    phase("14. count -b24 / -k33 CLI on the card vs on the CPU")
+    count_cli_check()
     torch.cuda.synchronize()
 
     print(json.dumps({"kernels": [
-        dict(KERNELS[name], launches=launches[name], max_abs_err=r[0],
-             ms=r[1], plain_ms=r[2], device_ms=r[3], plain_device_ms=r[4])
+        dict(KERNELS[name], **r,
+             launches=sum(c.get(name, 0) for c in by_path.values()),
+             launches_by_path={p: c[name] for p, c in by_path.items()
+                               if c.get(name)})
         for name, r in results.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

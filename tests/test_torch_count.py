@@ -2,9 +2,14 @@
 byte-identical to the JAX package's for a fixed-length-read FASTQ (the
 periodic 2-plane path) and a multi-line FASTA with N runs and sequences
 shorter than k (the 3-plane path), through count_file, through several
-folds of the table, and through the CLI."""
+folds of the table, and through the CLI; and for the `-b` two-pass
+protocol (two files, the same file twice, a copy under a second path,
+k = 33), through `count` and the CLI."""
 
+import contextlib
+import io
 import os
+import shutil
 import subprocess
 import sys
 
@@ -14,6 +19,7 @@ import pytest
 from yak_tpu.io.chunks import ChunkSource as JaxChunkSource
 from yak_tpu.models import count as jcount
 from yak_tpu.table import KmerTable as JaxTable
+from yak_tpu_torch import cli
 from yak_tpu_torch.io.chunks import ChunkSource
 from yak_tpu_torch.io.pack import detect_periodic_meta
 from yak_tpu_torch.models import count as pcount
@@ -143,10 +149,97 @@ def test_restore_roundtrip(inputs, tmp_path):
     np.testing.assert_array_equal(r.hist(), t.hist())
 
 
-def test_unported_options_raise(inputs):
+def test_unported_options_raise(inputs, tmp_path):
+    """-X (the byte-exact khashl dump) is the count option still
+    refused: by the model with the ROADMAP item, by the CLI with exit
+    code 1 and no output file."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pcount.count([inputs["fastq"]], pcount.CountOpts(bf_shift=20,
+                                                          exact=True,
                                                           device="cpu"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pcount.count_file(inputs["fastq"], pcount.CountOpts(k=33,
+        pcount.count_file(inputs["fastq"], pcount.CountOpts(k=33, exact=True,
                                                             device="cpu"))
+    out = tmp_path / "x.yak"
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        ret = cli.main(["count", "-X", "-b20", "--device", "cpu", "-o",
+                        str(out), inputs["fastq"]])
+    assert ret == 1 and "not yet ported" in err.getvalue()
+    assert not out.exists()
+
+
+@pytest.fixture(scope="module")
+def bloom_inputs(tmp_path_factory):
+    """Two read sets of one genome (different reads, so the gate of
+    pass 1 and the recount of pass 2 see different streams), and a copy
+    of the first under a second path."""
+    d = tmp_path_factory.mktemp("bloom_inputs")
+    rng = np.random.default_rng(77)
+    g = _genome(rng, 6000)
+    paths = {}
+    for name in ("a", "b"):
+        paths[name] = str(d / f"{name}.fq")
+        with open(paths[name], "wb") as f:
+            for i in range(700):
+                s = rng.integers(0, len(g) - READ_LEN)
+                r = g[s:s + READ_LEN].copy()
+                r[rng.random(READ_LEN) < 0.005] = rng.integers(0, 4)
+                if rng.random() < 0.5:
+                    r = (3 - r)[::-1]
+                f.write(b"@r%d\n%s\n+\n%s\n" % (i, ALPH[r].tobytes(),
+                                                  b"I" * READ_LEN))
+    paths["a_copy"] = str(d / "a_copy.fq")
+    shutil.copy(paths["a"], paths["a_copy"])
+    return paths
+
+
+BLOOM_RUNS = {   # name -> (input names, k)
+    "two_files": (("a", "b"), 31),
+    "same_file": (("a", "a"), 31),
+    "copy_literal": (("a", "a_copy"), 31),
+    "two_files_k33": (("a", "b"), 33),
+}
+
+
+@pytest.mark.parametrize("name", list(BLOOM_RUNS))
+def test_bloom_count_dump_matches_jax(bloom_inputs, tmp_path, name):
+    """count -b20: the literal two-pass for two paths (gated pass 1,
+    destroy_bf, clear, increment-only pass 2, shrink), the one-pass
+    shortcut for one path twice; dumps byte-identical to the JAX
+    package's, and the copy's literal protocol gives the shortcut's
+    table."""
+    names, k = BLOOM_RUNS[name]
+    files = [bloom_inputs[n] for n in names]
+    t = pcount.count(files, pcount.CountOpts(k=k, bf_shift=20,
+                                             chunk_size=CHUNK, device="cpu"))
+    t.dump(str(tmp_path / "port.yak"))
+    jt = jcount.count(files, jcount.CountOpts(k=k, bf_shift=20,
+                                              chunk_size=CHUNK))
+    jt.dump(str(tmp_path / "jax.yak"))
+    got = (tmp_path / "port.yak").read_bytes()
+    assert got == (tmp_path / "jax.yak").read_bytes()
+    assert t.bf is None and t.tot > 1000
+    assert set(t.items()[1].tolist()) <= set(range(2, 1024))
+    if name == "copy_literal":
+        short = pcount.count([files[0], files[0]], pcount.CountOpts(
+            k=k, bf_shift=20, chunk_size=CHUNK, device="cpu"))
+        short.dump(str(tmp_path / "short.yak"))
+        assert (tmp_path / "short.yak").read_bytes() == got
+
+
+@pytest.mark.parametrize("args", [["-b20", "-H3"], ["-k33", "-b20"]])
+def test_cli_bloom_and_wide_match_jax(bloom_inputs, tmp_path, args):
+    out = str(tmp_path / "cli.yak")
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        ret = cli.main(["count", *args, f"-K{CHUNK}", "--device", "cpu",
+                        "-o", out, bloom_inputs["a"], bloom_inputs["b"]])
+    assert ret == 0, err.getvalue()
+    assert "distinct k-mers after shrinking" in err.getvalue()
+    k = 33 if "-k33" in args else 31
+    jt = jcount.count([bloom_inputs["a"], bloom_inputs["b"]], jcount.CountOpts(
+        k=k, bf_shift=20, bf_n_hash=3 if "-H3" in args else 4,
+        chunk_size=CHUNK))
+    jt.dump(str(tmp_path / "jax.yak"))
+    assert open(out, "rb").read() == (tmp_path / "jax.yak").read_bytes()

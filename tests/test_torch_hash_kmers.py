@@ -93,6 +93,11 @@ def test_extract_periodic_matches_jax(k):
 
 
 def test_extract_rejects_wide_k():
+    """k = 64 and above is no k-mer size of yak's (main.c: -k must be
+    smaller than 64); k in [32, 63] is tests/test_torch_wide.py's."""
     z = torch.zeros((1, 3), dtype=torch.int64)
-    with pytest.raises(NotImplementedError):
-        kmers.extract_from_planes(z, z, z, 33, 40)
+    for k in (0, 64):
+        with pytest.raises(ValueError, match="63"):
+            kmers.extract_from_planes(z, z, z, k, 80)
+        with pytest.raises(ValueError, match="63"):
+            kmers.extract_periodic(z, z, z[:, 0], k, 80, 79)

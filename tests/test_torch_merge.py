@@ -1,17 +1,22 @@
 """The port's merge-reduce (ops/merge.py, plain torch version on the CPU)
 and its sort-merge engine (ops/sorttable.merge_batch) against the JAX
 package's Pallas merge-reduce kernel in interpret mode and its XLA
-merge_batch.  Every value is an integer: all comparisons are exact."""
+merge_batch, in count mode and in the weighted (Bloom-gated) and wide
+(k >= 32) modes.  Every value is an integer: all comparisons are
+exact."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from torch_merge_cases import CASES, expected, sorted_table
+from torch_merge_cases import (CASES, MODE_CASES, SIGN, expected,
+                               sorted_batch, sorted_table)
 from yak_tpu.ops import sorttable as jst
-from yak_tpu.ops.countstep import _pmerge_prep_impl, finalize_pmerge
+from yak_tpu.ops.countstep import (_pmerge_prep_impl, _xs_packed_sorted,
+                                   _xs_wide_sorted, finalize_pmerge)
 from yak_tpu.ops.pallas_merge import merge_reduce as pallas_merge_reduce
+from yak_tpu.ops.pallas_merge import merge_reduce_presorted
 from yak_tpu_torch.ops import merge, sorttable
 from yak_tpu_torch.ops.countstep import sort_batch
 from yak_tpu_torch.ops.keys import torch_to_u64, u64_to_torch
@@ -93,6 +98,86 @@ def test_merge_matches_jax(name):
             np.testing.assert_array_equal(got_cnt[:len(want_cnt)], want_cnt)
 
 
+def _mode_port_args(case, device="cpu"):
+    """(tkeys, tcnt, size, bkeys, create, weights, wide) of a MODE_CASES
+    case as the count path hands them to merge_reduce."""
+    hs, cs, batch, valid, w, cap, create, wide = case
+    tk, tc = sorted_table(hs, cs, cap, wide)
+    bkeys, bw = sorted_batch(batch, valid, w, wide)
+    return (u64_to_torch(tk, device), torch.from_numpy(tc).to(device),
+            torch.tensor(len(hs), dtype=torch.int32, device=device),
+            torch.from_numpy(bkeys).to(device), create,
+            None if bw is None else torch.from_numpy(bw).to(device), wide)
+
+
+def _pallas_mode_merge(hs, cs, batch, valid, w, cap, create, wide):
+    """The JAX package's presorted fold on the same inputs: the XLA-sorted
+    descending planes (_xs_packed_sorted, or _xs_wide_sorted with the
+    kernel's clamp), each key run's weight sum on the run's last lane of
+    the `bw` plane, the Pallas kernel in interpret mode."""
+    tk, tc = sorted_table(hs, cs, cap)
+    Ehi, Elo = (_xs_wide_sorted if wide else _xs_packed_sorted)(
+        jnp.asarray(batch), jnp.asarray(valid))
+    bw = None
+    if w is not None:
+        E = ((np.asarray(Ehi).astype(np.uint64) << np.uint64(32))
+             | np.asarray(Elo).astype(np.uint64))
+        key = E if wide else E >> np.uint64(1)
+        tot = {}
+        for x, wx in zip(sorted_batch(batch, valid, wide=wide)[0].tolist(),
+                         sorted_batch(batch, valid, w, wide)[1].tolist()):
+            tot[x] = tot.get(x, 0) + wx
+        enc = (key ^ SIGN if wide else key).view(np.int64)
+        ends = (E != np.uint64((1 << 64) - 1)) & np.append(E[:-1] != E[1:],
+                                                           True)
+        bwn = np.zeros(len(E), np.int32)
+        bwn[ends] = [tot[x] for x in enc[ends].tolist()]
+        bw = jnp.asarray(bwn)
+    shifted = jnp.asarray(tk) if wide else jnp.asarray(tk) << jnp.uint64(1)
+    thi = (shifted >> jnp.uint64(32)).astype(jnp.uint32)
+    tlo = (shifted & jnp.uint64(0xFFFFFFFF)).astype(jnp.uint32)
+    out = merge_reduce_presorted(
+        jnp.full((1,), len(hs), jnp.int32), thi, tlo, jnp.asarray(tc), Ehi,
+        Elo, bw=bw, Na=cap, Nb=len(batch), create=create, interpret=True,
+        wide=wide)
+    return finalize_pmerge(*out, cap=cap, wide=wide)
+
+
+@pytest.mark.parametrize("name", list(MODE_CASES))
+def test_mode_merge_matches_jax(name):
+    """Weighted and wide modes: the port's merge_reduce (the plain
+    version on the CPU) == the numpy contract == the Pallas kernel's
+    presorted fold in interpret mode == the XLA merge_batch with the
+    zero-weight lanes invalid (not for the clamp cases: the XLA engine
+    does not clamp 0xFF..FF)."""
+    case = MODE_CASES[name]()
+    hs, cs, batch, valid, w, cap, create, wide = case
+    tkeys, tcnt, size, bkeys, _, bw, _ = _mode_port_args(case)
+    okeys, ocnt, new_size, n_new = merge.merge_reduce(
+        tkeys, tcnt, size, bkeys, create, weights=bw, wide=wide)
+    keys = torch_to_u64(okeys) ^ (SIGN if wide else np.uint64(0))
+    want_k, want_c, want_size, want_new = expected(*case[:4], cap, create,
+                                                   w, wide)
+    assert int(new_size) == want_size and int(n_new) == want_new
+    n = min(want_size, cap)
+    np.testing.assert_array_equal(keys[:n], want_k)
+    np.testing.assert_array_equal(ocnt.numpy()[:n], want_c)
+
+    refs = {"pallas": _pallas_mode_merge(*case)}
+    if "clamp" not in name:
+        add = np.ones(len(batch), np.int32) if w is None else w
+        refs["xla"] = jst.merge_batch(
+            *(jnp.asarray(a) for a in sorted_table(hs, cs, cap)),
+            jnp.int32(len(hs)), jnp.asarray(batch), jnp.asarray(add),
+            jnp.asarray(valid & (add > 0)), mode=jst.ADD, create=create,
+            packable=not wide)
+    for ref_name, (rk, rc, rsize, rnew, rovf) in refs.items():
+        assert int(rsize) == n and int(rnew) == want_new, ref_name
+        assert bool(rovf) == (want_size > cap), ref_name
+        np.testing.assert_array_equal(np.asarray(rk)[:n], want_k)
+        np.testing.assert_array_equal(np.asarray(rc)[:n], want_c)
+
+
 def test_merge_rejects_bad_inputs():
     keys = torch.zeros(16, dtype=torch.int64)
     cnt = torch.zeros(16, dtype=torch.int32)
@@ -104,6 +189,11 @@ def test_merge_rejects_bad_inputs():
         merge.merge_reduce(keys, cnt, size, b[::2])
     with pytest.raises(ValueError):
         merge.merge_reduce(keys, cnt[:8], size, b)
+    with pytest.raises(TypeError):
+        merge.merge_reduce(keys, cnt, size, b, weights=b)
+    with pytest.raises(ValueError):
+        merge.merge_reduce(keys, cnt, size, b,
+                           weights=torch.zeros(4, dtype=torch.int32))
 
 
 def test_merge_kernel_matches_plain_on_card(cuda_device):
@@ -120,6 +210,28 @@ def test_merge_kernel_matches_plain_on_card(cuda_device):
         pk, pc, ps, pn = merge.merge_reduce_plain(*args[:3], bkeys, create)
         torch.cuda.synchronize()
         live = min(int(ps), cap)
+        assert int(ns) == int(ps) and int(nn) == int(pn), name
+        assert torch.equal(ok[:live], pk[:live]), name
+        assert torch.equal(oc[:live], pc[:live]), name
+
+
+def test_mode_merge_kernel_matches_plain_on_card(cuda_device):
+    """On a CUDA card: the weighted and wide modes of the kernel equal
+    the plain version on every mode case, and each launch counts in
+    its modes."""
+    for name, build in MODE_CASES.items():
+        tkeys, tcnt, size, bkeys, create, bw, wide = _mode_port_args(
+            build(), cuda_device)
+        modes = dict(merge.merge_reduce.mode_launches)
+        ok, oc, ns, nn = merge.merge_reduce(tkeys, tcnt, size, bkeys, create,
+                                            weights=bw, wide=wide)
+        after = merge.merge_reduce.mode_launches
+        assert after["weighted"] == modes["weighted"] + (bw is not None)
+        assert after["wide"] == modes["wide"] + wide
+        pk, pc, ps, pn = merge.merge_reduce_plain(tkeys, tcnt, size, bkeys,
+                                                  create, bw)
+        torch.cuda.synchronize()
+        live = min(int(ps), tkeys.numel())
         assert int(ns) == int(ps) and int(nn) == int(pn), name
         assert torch.equal(ok[:live], pk[:live]), name
         assert torch.equal(oc[:live], pc[:live]), name

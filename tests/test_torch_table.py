@@ -2,6 +2,8 @@
 tests/test_table.py cases, the one-fold-late overflow replay, and the
 state bridge to a JAX KmerTable.  Exact comparisons."""
 
+import io
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -154,5 +156,19 @@ def test_state_bridge_roundtrip():
 
 
 def test_wide_k_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _table(k=33)
+    """What the port still refuses about k: k = 64, and the lookups
+    (qv, chkerr) against a k >= 32 table, which must not run k <= 31
+    extraction against wide keys."""
+    from yak_tpu_torch.models.chkerr import ChkerrOpts, main_chkerr
+    from yak_tpu_torch.models.qv import QvOpts, main_qv, run_qv
+
+    with pytest.raises(ValueError, match="63"):
+        _table(k=64)
+    t = _table(k=33)
+    out = io.StringIO()
+    for call in (lambda: run_qv(QvOpts(), "unread.fa", t, out=out),
+                 lambda: main_qv(QvOpts(), t, "unread.fa", out=out),
+                 lambda: main_chkerr(ChkerrOpts(), t, "unread.fa", out=out)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            call()
+    assert out.getvalue() == ""

@@ -2,15 +2,27 @@
 (tests/test_torch_merge.py) and its on-card check (chip_smoke.py).
 
 numpy only: chip_smoke.py imports this module on a machine without JAX.
-Each case is (table hashes, table counts, batch hashes, batch valid mask,
-cap, create).  The first group repeats tests/test_pallas_merge.py's
-cases and seeds (TPU tile = 8192 lanes); the second puts key runs at the
-edges of the CUDA kernel's 1024-lane tiles.
+Each case of CASES is (table hashes, table counts, batch hashes, batch
+valid mask, cap, create).  The first group repeats
+tests/test_pallas_merge.py's cases and seeds (TPU tile = 8192 lanes);
+the second puts key runs at the edges of the CUDA kernel's 1024-lane
+tiles.
+
+MODE_CASES hold the weighted (Bloom-gated) and wide (k >= 32) modes:
+(table hashes, table counts, batch hashes, batch valid mask, batch
+weights or None, cap, create, wide), hashes as raw uint64.  The wide
+cases use all 64 bits, with keys >= 2^63, the raw values that encode to
+INT64_MIN and -1 (0 and 2^63 - 1) at the stream's ends, and the 0xFF..FF clamp
+of tests/test_pallas_merge.py::test_wide_merge_create_false_and_clamp;
+the weighted cases put zero-weight runs across tiles.
 """
 
 import numpy as np
 
 CAP = 1 << 14
+U64_MAX = (1 << 64) - 1
+SIGN = np.uint64(1 << 63)
+INT64_MAX = (1 << 63) - 1
 
 
 def _random_case(seed, n_table, n_batch, space_n, create=True):
@@ -78,27 +90,152 @@ CASES = {
 }
 
 
-def sorted_table(hs, cs, cap):
+def _wide_space(rng, n):
+    space = rng.integers(0, 1 << 64, n, dtype=np.uint64)
+    return np.where(space == np.uint64(U64_MAX), space - np.uint64(1), space)
+
+
+def _wide_random(seed, create=True, weighted=False):
+    """tests/test_pallas_merge.py::test_wide_merge_matches_xla_step's
+    shape: full-width keys, half the space in the table."""
+    rng = np.random.default_rng(seed)
+    space = _wide_space(rng, 4000)
+    batch = rng.choice(space, size=12000).astype(np.uint64)
+    valid = rng.random(12000) < 0.95
+    hs = np.unique(rng.choice(space, size=2000)).astype(np.uint64)
+    cs = np.full(len(hs), 7, np.int32)
+    w = rng.integers(0, 4, 12000).astype(np.int32) if weighted else None
+    return hs, cs, batch, valid, w, CAP, create, True
+
+
+def _wide_clamp(create):
+    """tests/test_pallas_merge.py::test_wide_merge_create_false_and_clamp:
+    a table key >= 2^63, a batch-only key, and three valid 0xFF..FF."""
+    present = np.uint64(1 << 63) | np.uint64(12345)
+    inf = np.uint64(U64_MAX)
+    batch = np.concatenate([
+        np.array([present] * 5 + [42] * 4 + [inf] * 3, np.uint64),
+        np.zeros(16384 - 12, np.uint64)])
+    valid = np.zeros(16384, bool)
+    valid[:12] = True
+    return (np.array([present], np.uint64), np.array([3], np.int32), batch,
+            valid, None, CAP, create, True)
+
+
+def _wide_edges(single_run):
+    """Keys whose encodings are the narrow mode's "no lane" value -1
+    (raw 2^63 - 1) and INT64_MIN (raw 0) at the ends of the merged
+    stream, over the first 1024-lane tile edge: one run of raw 2^63 - 1
+    through the whole stream, or raw 0 first and raw 2^63 - 1 last."""
+    lo, minus1 = np.uint64(0), np.uint64((1 << 63) - 1)
+    if single_run:
+        hs, cs = np.array([minus1], np.uint64), np.array([2], np.int32)
+        batch = np.full(1030, minus1, np.uint64)
+    else:
+        hs, cs = np.array([lo], np.uint64), np.array([2], np.int32)
+        batch = np.concatenate([np.full(3, lo, np.uint64),
+                                np.full(1030, minus1, np.uint64)])
+    return hs, cs, batch, np.ones(len(batch), bool), None, CAP, True, True
+
+
+def _weighted_random(seed, create=True):
+    rng = np.random.default_rng(seed)
+    space = rng.integers(0, 1 << 62, 6000, dtype=np.uint64)
+    hs = rng.choice(space, size=3000, replace=False).astype(np.uint64)
+    cs = rng.integers(0, 900, 3000).astype(np.int32)
+    batch = rng.choice(space, size=12000).astype(np.uint64)
+    valid = rng.random(12000) < 0.97
+    w = np.where(rng.random(12000) < 0.3, 0,
+                 rng.integers(1, 4, 12000)).astype(np.int32)
+    return hs, cs, batch, valid, w, CAP, create, False
+
+
+def _weighted_zero_runs():
+    """A table-less key of 3000 zero-weight lanes (spans tiles: must not
+    be created), a table-less key of 2500 lanes whose last lane weighs 5,
+    and a table key whose 1500 lanes all weigh 0 (kept, count kept)."""
+    a, b, c = np.uint64(1000), np.uint64(2000), np.uint64(3000)
+    batch = np.concatenate([np.full(3000, a, np.uint64),
+                            np.full(2500, b, np.uint64),
+                            np.full(1500, c, np.uint64)])
+    w = np.zeros(len(batch), np.int32)
+    w[3000 + 2499] = 5
+    return (np.array([c, 77], np.uint64), np.array([11, 4], np.int32), batch,
+            np.ones(len(batch), bool), w, CAP, True, False)
+
+
+MODE_B = 16384    # every mode case's batch, padded with invalid lanes
+
+
+def _padded(build):
+    """A mode case with its batch padded to MODE_B lanes (invalid, weight
+    0), so that the cases share their compiled shapes in the tests."""
+    def make():
+        hs, cs, batch, valid, w, cap, create, wide = build()
+        n = MODE_B - len(batch)
+        return (hs, cs, np.concatenate([batch, np.zeros(n, np.uint64)]),
+                np.concatenate([valid, np.zeros(n, bool)]),
+                None if w is None else np.concatenate(
+                    [w, np.zeros(n, np.int32)]), cap, create, wide)
+    return make
+
+
+MODE_CASES = {name: _padded(build) for name, build in {
+    "weighted_random": lambda: _weighted_random(11),
+    "weighted_create_false": lambda: _weighted_random(12, create=False),
+    "weighted_zero_runs_across_tiles": _weighted_zero_runs,
+    "wide_random": lambda: _wide_random(23),
+    "wide_create_false_clamp": lambda: _wide_clamp(False),
+    "wide_create_true_clamp": lambda: _wide_clamp(True),
+    "wide_sign_single_run": lambda: _wide_edges(True),
+    "wide_sign_stream_ends": lambda: _wide_edges(False),
+    "weighted_wide": lambda: _wide_random(29, weighted=True),
+}.items()}
+
+
+def sorted_table(hs, cs, cap, wide=False):
     """Table arrays (keys uint64 [cap], counts int32 [cap]) as the JAX
-    tests build them: live keys sorted ascending, then (0, -1)."""
+    tests build them: live keys sorted ascending, then (0, -1).  wide:
+    the keys come back wide-encoded (h ^ 2^63), the port's table
+    encoding for k >= 32."""
     tk = np.zeros(cap, np.uint64)
     tc = np.full(cap, -1, np.int32)
     order = np.argsort(hs)
-    tk[:len(hs)] = hs[order]
+    tk[:len(hs)] = hs[order] ^ SIGN if wide else hs[order]
     tc[:len(hs)] = cs[order]
     return tk, tc
 
 
-def expected(hs, cs, batch, valid, cap, create):
+def sorted_batch(batch, valid, weights=None, wide=False):
+    """The batch as the count path hands it to the merge: keys as int64
+    bit patterns (wide: 0xFF..FF clamped, then ^ 2^63), ascending, with
+    the invalid lanes INT64_MAX at the tail; and the weights (or None)
+    in the same order."""
+    keys = batch.copy()
+    if wide:
+        keys = np.where(keys == np.uint64(U64_MAX), keys - np.uint64(1), keys)
+        keys = keys ^ SIGN
+    keys = np.where(valid, keys.view(np.int64), INT64_MAX)
+    order = np.argsort(keys, kind="stable")
+    return keys[order], None if weights is None else weights[order]
+
+
+def expected(hs, cs, batch, valid, cap, create, weights=None, wide=False):
     """The contract in plain numpy: (keys, counts, new_size, n_new) with
-    new_size counted before truncation and keys/counts cut at cap."""
+    new_size counted before truncation and keys/counts cut at cap.  Keys
+    are raw uint64 in unsigned order; a key absent from the table is
+    created when its batch weight sum is above 0 (1 a valid lane without
+    weights); wide: a raw 0xFF..FF counts as 0xFF..FE."""
     t = dict(zip(hs.tolist(), cs.tolist()))
+    w = np.ones(len(batch), np.int64) if weights is None else weights
     add = {}
-    for x in batch[valid].tolist():
-        add[x] = add.get(x, 0) + 1
+    for x, wx in zip(batch[valid].tolist(), w[valid].tolist()):
+        if wide and x == U64_MAX:
+            x -= 1
+        add[x] = add.get(x, 0) + wx
     out = {}
     for key in set(t) | set(add):
-        if key in t or create:
+        if key in t or (create and add[key] > 0):
             out[key] = min(t.get(key, 0) + add.get(key, 0), 1023)
     keys = np.array(sorted(out), np.uint64)
     cnts = np.array([out[x] for x in keys.tolist()], np.int32)

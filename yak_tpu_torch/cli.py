@@ -1,9 +1,9 @@
 """Command-line interface: `python -m yak_tpu_torch <command> [options]`.
 
-Port of `yak_tpu/cli.py` for `count` (without `-b`, k <= 31), `qv`,
-`chkerr` and `version`, with the same options, messages and footer.
-Every other command of the reference CLI exits 1 with "not yet
-ported".
+Port of `yak_tpu/cli.py` for `count` (with `-b`, `-H` and k in [1, 63];
+`-X` exits 1 with "not yet ported"), `qv`, `chkerr` and `version`, with
+the same options, messages and footer.  Every other command of the
+reference CLI exits 1 with "not yet ported".
 
 The device is chosen explicitly: `--device cuda|cuda:N|cpu` anywhere
 on the command line, else `cuda`.  When CUDA is asked for and absent,
@@ -96,15 +96,15 @@ def resolve_device(name):
 
 def main_count(argv, device):
     from yak_tpu_torch.models.count import CountOpts, count
-    # -b is parsed so that the count reports it as not yet ported
-    o, pos = _getopt(argv, {"k": 1, "p": 1, "K": 1, "t": 1, "b": 1,
-                            "o": 1})
+    o, pos = _getopt(argv, {"k": 1, "p": 1, "K": 1, "t": 1, "b": 1, "H": 1,
+                            "o": 1, "X": 0})
     opt = CountOpts(device=str(device))
     if "k" in o: opt.k = int(o["k"])
     if "p" in o: opt.pre = int(o["p"])
     if "K" in o: opt.chunk_size = _parse_num(o["K"])
     if "t" in o: opt.n_thread = int(o["t"])
     if "b" in o: opt.bf_shift = int(o["b"])
+    if "H" in o: opt.bf_n_hash = _parse_num(o["H"])
     fn_out = o.get("o")
     if not pos:
         return _usage(["Usage: yak_tpu_torch count [options] <in.fa> "
@@ -112,10 +112,20 @@ def main_count(argv, device):
                        "Options:",
                        f"  -k INT     k-mer size [{opt.k}]",
                        f"  -p INT     prefix length [{opt.pre}]",
+                       "  -b INT     set Bloom filter size to 2**INT bits; "
+                       "0 to disable [0]",
+                       "  -H INT     use INT hash functions for Bloom "
+                       "filter [4]",
                        "  -t INT     number of worker threads [4]",
                        "  -o FILE    dump the count hash table to FILE []",
                        "  -K INT     chunk size [100m]",
+                       "  -X         byte-exact dump (reference khashl"
+                       " slot order)",
                        "  --device D cuda, cuda:N or cpu [cuda]"])
+    if "X" in o:
+        print("[E::main] count -X (the byte-exact dump) is not yet ported "
+              "to yak_tpu_torch (see ROADMAP.md)", file=sys.stderr)
+        return 1
     if opt.pre < 10:
         print("ERROR: -p should be at least 10", file=sys.stderr)
         return 1

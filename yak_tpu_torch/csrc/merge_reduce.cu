@@ -1,23 +1,39 @@
 // Merge-reduce of the count path, written for Hopper (sm_90a).
 //
 // Replaces the TPU kernel yak_tpu/ops/pallas_merge.py::_make_kernel in
-// count mode (unit batch weights, create or increment-only).  It folds a
-// sorted batch of k-mer hashes into the sorted count table:
+// count mode (unit batch weights, create or increment-only), weighted
+// mode (the `bw` plane of merge_reduce_presorted) and wide mode
+// (`wide=True`, k >= 32).  It folds a sorted batch of k-mer hashes into
+// the sorted count table:
 //
 //   table : int64 keys [0, size) ascending and unique, int32 counts;
 //   batch : int64 keys ascending, invalid lanes = INT64_MAX at the tail;
+//           with weights, an int32 weight >= 0 a lane (else 1 a lane);
 //   out   : for every key in either stream, count = min(table count +
-//           number of batch lanes, 1023), ascending; with create = 0,
-//           keys absent from the table are dropped; n_new counts the
-//           created keys; new_size is counted before truncation, so
-//           new_size > cap is the overflow flag.  Writes stop at cap.
+//           the sum of its batch lanes' weights, 1023), ascending; a
+//           key absent from the table is created only with create = 1
+//           and, with weights, only when its weight sum is above 0 (the
+//           Bloom gate's keep rule, pallas_merge.py:328-340); n_new
+//           counts the created keys; new_size is counted before
+//           truncation, so new_size > cap is the overflow flag.  Writes
+//           stop at cap.
 //
 // This is exactly sorttable.merge_batch_impl in ADD mode
-// (yak_tpu/ops/sorttable.py:90-171) with unit batch weights.
+// (yak_tpu/ops/sorttable.py:90-171) with the zero-weight lanes invalid.
+//
+// Wide mode: k >= 32 hashes use all 64 bits.  The caller carries them as
+// h ^ (1 << 63), so int64 order is their unsigned order, with a raw
+// 0xFF..FF clamped to 0xFF..FE so that INT64_MAX stays the invalid
+// sentinel (the TPU kernel's own clamp, countstep.py:366-375).  The
+// merge needs no other change, except that no int64 value is free to
+// mark "no lane" (the narrow mode uses -1: its keys are >= 0); the wide
+// instantiation marks the stream's first and last lanes as run edges by
+// position instead.
 //
 // What bounds it on the H100: device-memory bytes.  A fold reads about
-// 12 B x cap (table keys + counts) + 8 B x B (batch keys) and writes about
-// 12 B x (cap + B) at most; the arithmetic per lane is a few compares.
+// 12 B x cap (table keys + counts) + 8 B x B (batch keys; 12 B with
+// weights) and writes about 12 B x (cap + B) at most; the arithmetic per
+// lane is a few compares.
 //
 // Design.  The TPU kernel runs its grid in order and carries the open
 // key run's (key, partial sum) and the emitted total in SMEM from one
@@ -44,7 +60,9 @@
 //
 // The merged stream is rebuilt in pass 4 rather than stored by pass 2:
 // re-reading the two input slices (12 B a lane) costs fewer bytes than
-// writing and re-reading a merged stream (key, weight, flag).
+// writing and re-reading a merged stream (key, weight, flag).  The
+// modes are template instantiations of the same four kernels; the
+// unit-weight narrow one is the count mode's code as it was.
 //
 // What the TPU kernel needed and this one does not:
 // - a stream bit in the packed key (hash << 1 | stream) to make its tile
@@ -57,6 +75,8 @@
 //   (countstep.py:947-958): writes here stop at cap and the true
 //   new_size is reported, so the caller's one-step-late replay grows the
 //   table and re-runs the fold;
+// - a second realness test and tie rule for wide keys
+//   (pallas_merge.py:273-276): the sign flip makes them ordinary int64;
 // - the x64 flag flips, the 1024-aligned pending-block DMA and the
 //   smoke gates of the TPU toolchain.
 //
@@ -105,6 +125,7 @@ constexpr int NT = 256;             // threads per tile block
 constexpr int IPT = TILE / NT;      // consecutive lanes per thread
 constexpr int SCAN_NT = 1024;       // threads of the one scan block
 constexpr long long KINF = 0x7fffffffffffffffLL;
+constexpr long long KMIN = -KINF - 1;
 constexpr int MAX_COUNT = 1023;
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -257,8 +278,18 @@ struct TileLanes {
     bool valid[IPT];
 };
 
+// Whether a run that ends survives: with weights, a run absent from the
+// table is created only when its weight sum is above 0.
+template <bool WEIGHTED>
+__device__ __forceinline__ bool keep_run(int create, bool pres, int sum) {
+    if constexpr (WEIGHTED) return create ? (pres || sum > 0) : pres;
+    return create || pres;
+}
+
+template <bool WEIGHTED, bool WIDE>
 __device__ void merge_tile(long long t, const long long* A, const int* Acnt,
-                           long long size, const long long* B, long long nb,
+                           long long size, const long long* B,
+                           const int* Bw, long long nb,
                            const long long* part, TileSmem& sm,
                            TileLanes& L) {
     const long long N = size + nb;
@@ -288,17 +319,20 @@ __device__ void merge_tile(long long t, const long long* A, const int* Acnt,
         long long v = sm.sb[j];
         int pos = j + upper_bound_s(sm.sa, na, v);
         sm.mk[pos] = v;
-        sm.mw[pos] = 1;
+        if constexpr (WEIGHTED) sm.mw[pos] = Bw[b0 + j];
+        else sm.mw[pos] = 1;
         sm.mt[pos] = 0;
     }
     __syncthreads();
 
-    // the merged lanes just before and just after the tile (-1: none;
-    // real keys are >= 0)
-    long long prev = -1, next = -1;
+    // the merged lanes just before and just after the tile (NONE: that
+    // stream has no lane there; narrow keys are >= 0, so -1 also
+    // means "no lane at all")
+    constexpr long long NONE = WIDE ? KMIN : -1;
+    long long prev = NONE, next = NONE;
     if (d0 > 0) {
-        long long pa = a0 > 0 ? A[a0 - 1] : -1;
-        long long pb = b0 > 0 ? B[b0 - 1] : -1;
+        long long pa = a0 > 0 ? A[a0 - 1] : NONE;
+        long long pb = b0 > 0 ? B[b0 - 1] : NONE;
         prev = pa > pb ? pa : pb;
     }
     if (d1 < N) {
@@ -327,6 +361,11 @@ __device__ void merge_tile(long long t, const long long* A, const int* Acnt,
             const long long nk = p < n - 1 ? sm.mk[p + 1] : next;
             head = key != pk;
             end = key != nk;
+            if constexpr (WIDE) {
+                // any int64 is a wide key: the stream's edges by position
+                head = head || (p == 0 && d0 == 0);
+                end = end || (p == n - 1 && d1 == N);
+            }
         }
         agg = seg_combine(agg, Seg{head ? 1 : 0, w, tab});
         L.key[q] = key;
@@ -370,11 +409,14 @@ __global__ void k_partition(const long long* __restrict__ A,
 
 // Per tile: seg[3t..3t+2] = segmented aggregate (f, s, p);
 // cnt[3t] = run ends kept without a carry, cnt[3t+1] = of those, created
-// keys, cnt[3t+2] = 1 when the continued run ends in this tile.
+// keys, cnt[3t+2] = 0, or 1 + the tile's part of its sum (1 without
+// weights) when the continued run ends in this tile.  At most one lane
+// of a tile ends the continued run.
+template <bool WEIGHTED, bool WIDE>
 __global__ void __launch_bounds__(NT)
 k_tile_aggregate(const long long* __restrict__ A, const int* __restrict__ Acnt,
                  const int* __restrict__ size_ptr, long long cap,
-                 const long long* __restrict__ B,
+                 const long long* __restrict__ B, const int* __restrict__ Bw,
                  const long long* __restrict__ nb_ptr,
                  const long long* __restrict__ part, int create,
                  int* __restrict__ seg, int* __restrict__ cnt) {
@@ -382,21 +424,22 @@ k_tile_aggregate(const long long* __restrict__ A, const int* __restrict__ Acnt,
     const long long t = blockIdx.x;
     if (threadIdx.x < 3) sm.cnt[threadIdx.x] = 0;
     TileLanes L;
-    merge_tile(t, A, Acnt, live_size(size_ptr, cap), B, *nb_ptr, part, sm, L);
+    merge_tile<WEIGHTED, WIDE>(t, A, Acnt, live_size(size_ptr, cap), B, Bw,
+                               *nb_ptr, part, sm, L);
     int kept = 0, created = 0, cont_end = 0;
 #pragma unroll
     for (int q = 0; q < IPT; ++q) {
         if (!L.valid[q] || !L.end[q]) continue;
         if (L.cont[q]) {
-            cont_end = 1;
-        } else if (create || L.pres[q]) {
+            cont_end = WEIGHTED ? 1 + L.sum[q] : 1;
+        } else if (keep_run<WEIGHTED>(create, L.pres[q], L.sum[q])) {
             ++kept;
             if (!L.pres[q]) ++created;
         }
     }
     if (kept) atomicAdd(&sm.cnt[0], kept);
     if (created) atomicAdd(&sm.cnt[1], created);
-    if (cont_end) atomicOr(&sm.cnt[2], 1);
+    if (cont_end) atomicOr(&sm.cnt[2], cont_end);
     __syncthreads();
     if (threadIdx.x == 0) {
         seg[3 * t] = sm.tile_total.f;
@@ -411,6 +454,7 @@ k_tile_aggregate(const long long* __restrict__ A, const int* __restrict__ Acnt,
 // One block: the carry into every tile (carry[2t] = sum, carry[2t+1] =
 // presence), the output offset of every tile's survivors, new_size and
 // n_new.
+template <bool WEIGHTED>
 __global__ void __launch_bounds__(SCAN_NT)
 k_scan_tiles(long long ntiles, int create, const int* __restrict__ seg,
              const int* __restrict__ cnt, int* __restrict__ carry,
@@ -437,9 +481,13 @@ k_scan_tiles(long long ntiles, int create, const int* __restrict__ seg,
         long long c = cnt[3 * t + 1];
         if (cnt[3 * t + 2]) {
             // the run continued from earlier tiles ends here: its
-            // presence is the carried one
-            if (create || run.p) ++k;
-            if (create && !run.p) ++c;
+            // presence is the carried one, its sum the carried one plus
+            // this tile's part
+            const bool pres = run.p != 0;
+            if (keep_run<WEIGHTED>(create, pres, run.s + cnt[3 * t + 2] - 1)) {
+                ++k;
+                if (!pres) ++c;
+            }
         }
         out_off[t] = k;
         kept += k;
@@ -457,10 +505,11 @@ k_scan_tiles(long long ntiles, int create, const int* __restrict__ seg,
     if (threadIdx.x == 0) *n_new = (int)sum_total;
 }
 
+template <bool WEIGHTED, bool WIDE>
 __global__ void __launch_bounds__(NT)
 k_scatter(const long long* __restrict__ A, const int* __restrict__ Acnt,
           const int* __restrict__ size_ptr, long long cap,
-          const long long* __restrict__ B,
+          const long long* __restrict__ B, const int* __restrict__ Bw,
           const long long* __restrict__ nb_ptr,
           const long long* __restrict__ part, int create,
           const int* __restrict__ carry,
@@ -469,7 +518,8 @@ k_scatter(const long long* __restrict__ A, const int* __restrict__ Acnt,
     __shared__ TileSmem sm;
     const long long t = blockIdx.x;
     TileLanes L;
-    merge_tile(t, A, Acnt, live_size(size_ptr, cap), B, *nb_ptr, part, sm, L);
+    merge_tile<WEIGHTED, WIDE>(t, A, Acnt, live_size(size_ptr, cap), B, Bw,
+                               *nb_ptr, part, sm, L);
     const int c_sum = carry[2 * t];
     const bool c_pres = carry[2 * t + 1] != 0;
     bool keep[IPT];
@@ -480,7 +530,8 @@ k_scatter(const long long* __restrict__ A, const int* __restrict__ Acnt,
             L.sum[q] += c_sum;
             L.pres[q] = L.pres[q] || c_pres;
         }
-        keep[q] = L.valid[q] && L.end[q] && (create || L.pres[q]);
+        keep[q] = L.valid[q] && L.end[q] &&
+                  keep_run<WEIGHTED>(create, L.pres[q], L.sum[q]);
         mine += keep[q] ? 1 : 0;
     }
     long long pos = out_off[t] +
@@ -532,6 +583,53 @@ k_join(const long long* __restrict__ A, const int* __restrict__ Acnt,
     for (long long j = e0 + threadIdx.x; j < e1; j += NT) vals[qidx[j]] = -1;
 }
 
+struct ReduceArgs {
+    const long long* tkeys;
+    const int* tcnt;
+    const int* size;
+    long long cap;
+    const long long* bkeys;
+    const int* bweights;
+    long long nbatch;
+    int create;
+    long long ntiles;
+    long long* part;
+    long long* nb;
+    int* seg;
+    int* cnt;
+    int* carry;
+    long long* out_off;
+    long long* okeys;
+    int* ocnt;
+    int* new_size;
+    int* n_new;
+    cudaStream_t s;
+};
+
+// The four launches of one merge-reduce in one mode.
+template <bool WEIGHTED, bool WIDE>
+int launch_reduce(const ReduceArgs& a) {
+    const long long pblocks = (a.ntiles + 1 + 255) / 256;
+    k_partition<<<(unsigned)pblocks, 256, 0, a.s>>>(
+        a.tkeys, a.size, a.cap, a.bkeys, a.nbatch, a.ntiles, a.part, a.nb);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    k_tile_aggregate<WEIGHTED, WIDE><<<(unsigned)a.ntiles, NT, 0, a.s>>>(
+        a.tkeys, a.tcnt, a.size, a.cap, a.bkeys, a.bweights, a.nb, a.part,
+        a.create, a.seg, a.cnt);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    k_scan_tiles<WEIGHTED><<<1, SCAN_NT, 0, a.s>>>(
+        a.ntiles, a.create, a.seg, a.cnt, a.carry, a.out_off, a.new_size,
+        a.n_new);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    k_scatter<WEIGHTED, WIDE><<<(unsigned)a.ntiles, NT, 0, a.s>>>(
+        a.tkeys, a.tcnt, a.size, a.cap, a.bkeys, a.bweights, a.nb, a.part,
+        a.create, a.carry, a.out_off, a.okeys, a.ocnt);
+    return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -563,31 +661,25 @@ const char* yak_cuda_error_string(int err) {
 // Scratch (all device memory, from the caller): part[ntiles + 1],
 // nb[1], seg[3 * ntiles], cnt[3 * ntiles], carry[2 * ntiles],
 // out_off[ntiles], with ntiles = ceil((cap + nbatch) / TILE) >= 1.
+// bweights: one int32 weight >= 0 per batch lane, or null for unit
+// weights (count mode); wide: the keys are wide-encoded k >= 32 hashes.
 // Returns the first CUDA error of the launches (0 = none).
 int yak_merge_reduce(const long long* tkeys, const int* tcnt,
                      const int* size, long long cap, const long long* bkeys,
-                     long long nbatch, int create, long long ntiles,
-                     long long* part, long long* nb, int* seg, int* cnt,
-                     int* carry, long long* out_off, long long* okeys,
-                     int* ocnt, int* new_size, int* n_new, void* stream) {
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const long long pblocks = (ntiles + 1 + 255) / 256;
-    k_partition<<<(unsigned)pblocks, 256, 0, s>>>(tkeys, size, cap, bkeys,
-                                                  nbatch, ntiles, part, nb);
-    cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-    k_tile_aggregate<<<(unsigned)ntiles, NT, 0, s>>>(
-        tkeys, tcnt, size, cap, bkeys, nb, part, create, seg, cnt);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-    k_scan_tiles<<<1, SCAN_NT, 0, s>>>(ntiles, create, seg, cnt, carry,
-                                       out_off, new_size, n_new);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-    k_scatter<<<(unsigned)ntiles, NT, 0, s>>>(tkeys, tcnt, size, cap, bkeys,
-                                              nb, part, create, carry,
-                                              out_off, okeys, ocnt);
-    return (int)cudaGetLastError();
+                     const int* bweights, long long nbatch, int create,
+                     int wide, long long ntiles, long long* part,
+                     long long* nb, int* seg, int* cnt, int* carry,
+                     long long* out_off, long long* okeys, int* ocnt,
+                     int* new_size, int* n_new, void* stream) {
+    const ReduceArgs a{tkeys, tcnt, size, cap, bkeys, bweights, nbatch,
+                       create, ntiles, part, nb, seg, cnt, carry, out_off,
+                       okeys, ocnt, new_size, n_new,
+                       static_cast<cudaStream_t>(stream)};
+    if (bweights)
+        return wide ? launch_reduce<true, true>(a)
+                    : launch_reduce<true, false>(a);
+    return wide ? launch_reduce<false, true>(a)
+                : launch_reduce<false, false>(a);
 }
 
 }  // extern "C"

@@ -43,7 +43,8 @@ def main_chkerr(opt, table, seq_fn, out=None):
     a chunk with more copies all of them from its compacted planes,
     which stay on the device until the chunk is folded."""
     out = out or sys.stdout
-    k = table.k         # <= 31: the port's KmerTable holds no wider keys
+    k = table.k
+    countstep.check_lookup_k(k, "chkerr")
     table.flush()
     dev = table.device
     chunk = max(1 << 14, min(int(opt.chunk_size), 1 << 23))

@@ -1,13 +1,16 @@
-"""The `count` workload: stream sequences -> canonical k-mer hashes ->
-counting table (count.c:147-166).
+"""The `count` workload: stream sequences -> k-mer hashes -> counting
+table (count.c:147-166), and the Bloom two-pass `-b` protocol
+(main.c:53-60).
 
-Port of `yak_tpu/models/count.py` without `-b`: the host packs
+Port of `yak_tpu/models/count.py` (without `-X`): the host packs
 fixed-shape flat code chunks (io/pack.py) and the table folds them on
 its device; CUDA queues device work asynchronously, so the host packs
 the next chunks while the device folds the previous group.
 """
 
-from dataclasses import dataclass
+import os
+import sys
+from dataclasses import dataclass, replace
 
 from yak_tpu_torch.io.chunks import ChunkSource
 from yak_tpu_torch.io.pack import detect_periodic_meta
@@ -21,21 +24,19 @@ class CountOpts:
     k: int = 31
     pre: int = 10
     bf_shift: int = 0
+    bf_n_hash: int = 4
     n_thread: int = 4          # accepted for CLI parity; unused
     chunk_size: int = 10_000_000
     cap_log2: int = 16         # initial table capacity (grows amortized)
+    exact: bool = False        # -X: the byte-exact dump (not yet ported)
     device: str = "cuda"
 
 
 def _check_supported(opt):
-    if opt.bf_shift > 0:
+    if opt.exact:
         raise NotImplementedError(
-            "-b (the Bloom-filter two-pass count) is not yet ported: "
-            "ROADMAP.md Queue 1, 'Bloom -b'")
-    if opt.k >= 32:
-        raise NotImplementedError(
-            f"-k {opt.k}: k >= 32 (the hash_long wide path) is not yet "
-            f"ported: ROADMAP.md Queue 1, 'k >= 32'")
+            "-X (the byte-exact khashl dump and its serial-exact Bloom "
+            "gate) is not yet ported: ROADMAP.md Queue 1, '-X'")
 
 
 def _device_chunk(opt):
@@ -45,17 +46,18 @@ def _device_chunk(opt):
 
 
 def count_file(fn, opt, table=None):
-    """Count k-mers of one file into `table` (created on opt.device if
-    None).
+    """Count k-mers of one file into `table` (created on opt.device, with
+    the Bloom filter of opt.bf_shift/opt.bf_n_hash, if None).
 
     table=None -> create-new mode; otherwise increment-existing-only
-    (the recount path, htab.c:71-75).
+    (the pass-2 / recount path, htab.c:71-75).
     """
     _check_supported(opt)
     create_new = table is None
     if table is None:
         table = KmerTable(opt.k, opt.pre, cap_log2=opt.cap_log2,
-                          device=opt.device)
+                          device=opt.device, bf_shift=opt.bf_shift,
+                          bf_n_hash=opt.bf_n_hash)
     elif table.k != opt.k or table.pre != opt.pre:
         raise ValueError("count_file: table k/pre differ from the options")
     chunk = _device_chunk(opt)
@@ -76,8 +78,42 @@ def count_file(fn, opt, table=None):
     return table
 
 
+def _same_stream(a, b):
+    """Whether the two -b pass inputs are the same file: the same path,
+    or the same real path (models/count._same_stream)."""
+    if a == b:
+        return True
+    try:
+        return os.path.realpath(a) == os.path.realpath(b)
+    except OSError:
+        return False
+
+
 def count(files, opt):
-    """`yak count` without `-b`: the table of the first input (the
-    second input is read only by the `-b` two-pass protocol)."""
+    """Full `yak count` semantics including the `-b` two-pass protocol
+    (main.c:53-60): pass 1 Bloom-gated; destroy the filter, zero the
+    counts; pass 2 over the second input (or the first again) increments
+    existing keys; shrink to counts >= 2.
+
+    Same-file shortcut, as in the JAX package: when both passes read the
+    same path, the protocol's table is exactly {key: count | count >= 2}
+    (a key's second sighting always passes the gate, pass 2 recounts
+    every sighting of every admitted key, and the shrink drops the
+    gate's false positives), so one ungated pass + shrink gives it.  The
+    test is on paths, not content: two paths to the same data take the
+    literal protocol, whose table is the same."""
     _check_supported(opt)
-    return count_file(files[0], opt)
+    second = files[1] if len(files) >= 2 else files[0]
+    if opt.bf_shift > 0 and _same_stream(files[0], second):
+        table = count_file(files[0], replace(opt, bf_shift=0))
+    else:
+        table = count_file(files[0], opt)
+        if opt.bf_shift <= 0:
+            return table
+        table.destroy_bf()
+        table.clear_counts()
+        count_file(second, opt, table=table)
+    table.shrink(2, 1023)
+    print(f"[M::count] {table.tot} distinct k-mers after shrinking",
+          file=sys.stderr)
+    return table

@@ -1,0 +1,142 @@
+"""Blocked Bloom prefilter of the `-b` count's first pass, in plain torch.
+
+Port of `yak_tpu/ops/bloom.py` without the serial-exact rank gate (that
+gate serves only `-X`, ROADMAP.md Queue 1, '-X').  Reference semantics
+(bbf.c:25-42, one filter per `pre`-bit shard, htab.c:23-27): for the
+shard-stripped hash x = h >> pre,
+
+  block   = x & (2^(n_shift-pre-9) - 1)        (512-bit blocks)
+  h1      = (x >> block_bits) & 511             (first probe)
+  h2      = (x >> (n_shift-pre)) & 511          (stride; +1 if h2 & 31 == 0)
+  probes  = h1, h1+h2, h1+2*h2, ... (mod 512), n_hashes of them
+
+and a k-mer enters the count table only when all n_hashes bits were
+already set (htab.c:63-64).
+
+The filter is the whole 2^n_shift-bit array laid out shard-major, as
+int32 words holding the u32 bit patterns.  Hashes are int64 bit patterns
+of u64 values, so every right shift of a full hash is the logical `srl`,
+and every word and block index is int64 (at -b37 the filter has 2^32
+words).  A batch of unique keys (the `active` lanes) is inserted as:
+
+  1. one 64-byte block gather per key (all its probes land in one
+     block), counting the probed bits already set plus the bits an
+     earlier probe of the same key set (bbf.c:37-39): every key sees
+     the filter as it was before the batch;
+  2. the probed bit positions sorted, duplicates dropped, and each
+     word's bit masks summed: the bits are unique, so the sum is the OR
+     (torch has no scatter-OR); sums run in int64 and keep their low 32
+     bits.  The dense tail (at most 2^22 words) takes each word's sum as
+     a prefix-sum difference and builds a new filter; the sparse tail
+     writes the sums of the run-end lanes into the filter in place.
+
+The count's one-fold-late overflow replay must see the filter as it was
+before the fold, so every update returns an undo record: the pre-update
+filter itself where the update built a new one, or (word index, old
+word) for the lanes an in-place update touched; `rollback` applies it.
+"""
+
+import torch
+
+from yak_tpu_torch import YAK_BLK_SHIFT
+from yak_tpu_torch.ops.keys import INT64_MAX, i32_bits, srl
+
+BLK_MASK = (1 << YAK_BLK_SHIFT) - 1          # 511
+BLK_WORDS = 1 << (YAK_BLK_SHIFT - 5)         # 16 words a block
+DENSE_WORDS = 1 << 22                        # dense tail up to 16 MiB
+
+
+def make_bloom(n_shift, device):
+    """An empty filter of 2^n_shift bits (n_shift >= 9): int32 words."""
+    if n_shift < YAK_BLK_SHIFT:
+        raise ValueError(f"Bloom filter of 2^{n_shift} bits: at least one "
+                         f"512-bit block (n_shift >= 9) is needed")
+    return torch.zeros(1 << (n_shift - 5), dtype=torch.int32, device=device)
+
+
+def probe_geom(h, *, pre, n_shift, n_hashes):
+    """Probe geometry of yak_bf_insert (bbf.c:25-33) for int64 hashes:
+    each key's global block bit offset `base` and its n_hashes in-block
+    bit positions `zs` (each < 512), all int64."""
+    ns_ = n_shift - pre
+    xbits = ns_ - YAK_BLK_SHIFT
+    shard = h & ((1 << pre) - 1)
+    x = srl(h, pre)                            # < 2^63: `>>` is logical
+    y = x & ((1 << xbits) - 1)
+    h1 = (x >> xbits) & BLK_MASK
+    h2 = (x >> ns_) & BLK_MASK
+    h2 = torch.where((h2 & 31) == 0, (h2 + 1) & BLK_MASK, h2)
+    base = (shard << ns_) | (y << YAK_BLK_SHIFT)
+    zs, z = [], h1
+    for _ in range(n_hashes):
+        zs.append(z)
+        z = (z + h2) & BLK_MASK
+    return base, zs
+
+
+def probe_count(bf, base, zs, active):
+    """Per active key, how many of its probed bits are set in `bf` or by
+    an earlier probe of the same key (int32; 0 for inactive lanes).  One
+    64-byte block gather per key replaces n_hashes word gathers."""
+    blocks = bf.reshape(-1, BLK_WORDS)
+    rows = blocks[(base >> YAK_BLK_SHIFT).clamp(0, blocks.shape[0] - 1)]
+    n_before = torch.zeros(base.shape, dtype=torch.int32, device=bf.device)
+    for i, zi in enumerate(zs):
+        word = rows.gather(1, (zi >> 5)[:, None])[:, 0].to(torch.int64)
+        seen = (word >> (zi & 31)) & 1
+        for zj in zs[:i]:
+            seen = seen | (zj == zi).to(torch.int64)
+        n_before += torch.where(active, seen, 0).to(torch.int32)
+    return n_before
+
+
+def _shift_in(x, fill):
+    """x moved one lane later, `fill` in lane 0."""
+    return torch.cat([x.new_full((1,), fill), x[:-1]])
+
+
+def bloom_insert(bf, h, active, *, pre, n_shift, n_hashes):
+    """Query-and-set the active lanes of `h` (unique hashes).
+
+    Returns (bf', n_before, undo): n_before[i] is the number of probed
+    bits already set (yak_bf_insert's return; the key enters the table
+    iff n_before == n_hashes).  Up to 2^22 words bf' is a new filter and
+    undo is `bf`, untouched; above, bf is updated in place, bf' is bf,
+    and undo holds the touched words' old values (see `rollback`)."""
+    base, zs = probe_geom(h, pre=pre, n_shift=n_shift, n_hashes=n_hashes)
+    n_before = probe_count(bf, base, zs, active)
+    nwords = bf.shape[0]
+    pos = torch.stack([base + z for z in zs]).reshape(-1)
+    act = active.repeat(len(zs))
+    p = torch.sort(torch.where(act, pos, INT64_MAX)).values
+    valid = p != INT64_MAX
+    uniq = valid & (p != _shift_in(p, -1))
+    w = torch.where(valid, p >> 5, nwords)
+    m = torch.where(uniq, torch.ones_like(p) << (p & 31), 0)
+    csum0 = torch.cat([m.new_zeros(1), torch.cumsum(m, 0)])
+    if nwords <= DENSE_WORDS:
+        bounds = torch.searchsorted(
+            w, torch.arange(nwords + 1, dtype=torch.int64, device=bf.device))
+        mask = csum0[bounds[1:]] - csum0[bounds[:-1]]
+        return bf | i32_bits(mask), n_before, bf
+    # sparse: one write per touched word, at the last lane of its run
+    lane = torch.arange(p.shape[0], dtype=torch.int64, device=bf.device)
+    word_start = valid & (w != _shift_in(w, -1))
+    nxt = torch.cat([w[1:], w.new_full((1,), nwords)])
+    word_end = valid & (w != nxt)
+    start = torch.cummax(torch.where(word_start, lane, 0), 0).values
+    run_mask = i32_bits(csum0[lane + 1] - csum0[start])
+    idx = torch.where(word_end, w, 0)
+    old = bf[idx]
+    # the run's bits not yet set: adding them is OR-ing them
+    bf.scatter_add_(0, idx, torch.where(word_end, run_mask & ~old, 0))
+    return bf, n_before, (idx, old)
+
+
+def rollback(bf, undo):
+    """The filter as it was before the update that returned `undo`."""
+    if isinstance(undo, tuple):
+        idx, old = undo
+        bf.index_put_((idx,), old)
+        return bf
+    return undo

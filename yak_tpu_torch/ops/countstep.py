@@ -1,16 +1,26 @@
 """The device steps: the count fold (packed planes -> k-mer hashes ->
-sorted batch -> merge-reduce into the table) and the lookup steps of qv
-and chkerr (packed planes -> hashes -> sorted queries -> merge-JOIN ->
-per-chunk reduction).
+sorted batch -> [Bloom gate ->] merge-reduce into the table) and the
+lookup steps of qv and chkerr (packed planes -> hashes -> sorted
+queries -> merge-JOIN -> per-chunk reduction).
 
 Port of the default count engine of `yak_tpu/ops/countstep.py`
-(`get_count_step_pmerge{,_planes}`, `_pmerge_prep_core`,
-`finalize_pmerge`, `pmerge_overflow`).  The batch sort is `torch.sort`,
-as the JAX package's is `lax.sort` in XLA (countstep.py:215-239); the
-merge is the hand-written kernel (`ops/merge.py`).  The batch travels as
-plain ascending int64 keys with INT64_MAX for invalid lanes: the TPU
-prep's complement trick, stream bit and u32 planes exist for the TPU
-kernel only.
+(`get_count_step_pmerge{,_planes}`, `get_count_wide_step{,_planes}`,
+`get_count_bloom_step{,_planes}`, `_pmerge_prep_core`,
+`finalize_pmerge`, `pmerge_overflow`) and of its Bloom gate posts
+(`get_bloom_gate_post`, `_gate_sent_a`, `_gate_sent_b`,
+`gate_sent_fits`, `run_bloom_gate_post`).  The batch sort is
+`torch.sort`, as the JAX package's is `lax.sort` in XLA
+(countstep.py:215-239, 387-425); the merge is the hand-written kernel
+(`ops/merge.py`).  The batch travels as plain ascending int64 keys with
+INT64_MAX for invalid lanes, k >= 32 hashes wide-encoded
+(`ops/keys.encode_wide`): the TPU prep's complement trick, stream bit
+and u32 planes exist for the TPU kernel only.
+
+The gate posts run on the sorted batch, where equal keys are adjacent:
+each key run is probed once at its last lane, which carries the run's
+add weight (the run length, less one where the key's probed bits were
+not all set: its first sighting feeds the filter, not the table), and
+the weighted merge drops the runs of weight 0 that the table lacks.
 
 The step never writes into its inputs, so the caller keeps the pre-step
 table and can replay the fold after growing it (`table.KmerTable`).
@@ -28,9 +38,12 @@ package and plain torch here; the compaction is the hand-written kernel
 import torch
 
 from yak_tpu_torch import YAK_MAX_COUNT
-from yak_tpu_torch.ops import compact, merge
-from yak_tpu_torch.ops.keys import INT64_MAX
+from yak_tpu_torch.ops import bloom, compact, merge
+from yak_tpu_torch.ops.keys import (INT64_MAX, decode_wide, encode_wide,
+                                    i32_bits)
 from yak_tpu_torch.ops.kmers import extract_from_planes, extract_periodic
+
+MARK_DROP = -(1 << 31)       # khi of a lane the compaction drops (bit 31)
 
 
 def extract(carg, k):
@@ -46,31 +59,43 @@ def extract(carg, k):
     return extract_from_planes(plo, phi, pnn, k, L)
 
 
-def sort_batch(h, valid):
+def sort_batch(h, valid, wide=False):
     """Flatten and sort a hash batch ascending; invalid lanes become
-    INT64_MAX and sort to the tail."""
-    keys = torch.where(valid, h, INT64_MAX).reshape(-1)
-    return torch.sort(keys).values
+    INT64_MAX and sort to the tail.  wide: the hashes are raw k >= 32
+    hashes, wide-encoded before the sort."""
+    keys = torch.where(valid, encode_wide(h) if wide else h, INT64_MAX)
+    return torch.sort(keys.reshape(-1)).values
 
 
-def count_step(carg, k, tkeys, tcnt, size, create, hook=None):
-    """One fold: extract + sort + merge-reduce + finalize.
+def count_step(carg, k, tkeys, tcnt, size, create, gate=None, hook=None):
+    """One fold: extract + sort [+ Bloom gate post] + merge-reduce +
+    finalize.  k >= 32 folds wide-encoded keys.
 
-    Returns (keys, cnt, size, n_new, overflow): the new table truncated
-    to cap, its live size min(new_size, cap), the created-key count and
-    the device overflow flag new_size > cap.  `hook`, when given, is
+    gate: None, or (bf, pre, bf_shift, bf_n_hash) to run the gated create
+    pass (htab.c:61-70) against the filter bf.
+
+    Returns (keys, cnt, size, n_new, overflow, bf', undo): the new table
+    truncated to cap, its live size min(new_size, cap), the created-key
+    count and the device overflow flag new_size > cap; with a gate, the
+    updated filter and the undo record that `bloom.rollback` turns back
+    into the pre-fold filter (else None, None).  `hook`, when given, is
     called with each phase's name as the phase is queued."""
     mark = hook or (lambda _name: None)
+    wide = k > 31
     h, valid = extract(carg, k)
     mark("extract")
-    bkeys = sort_batch(h, valid)
+    bkeys = sort_batch(h, valid, wide)
     mark("sort")
-    okeys, ocnt, new_size, n_new = merge.merge_reduce(tkeys, tcnt, size,
-                                                      bkeys, create)
+    weights = bf = undo = None
+    if gate is not None:
+        weights, bf, undo = run_bloom_gate_post(bkeys, *gate, wide=wide)
+        mark("gate")
+    okeys, ocnt, new_size, n_new = merge.merge_reduce(
+        tkeys, tcnt, size, bkeys, create, weights=weights, wide=wide)
     mark("merge")
     out = finalize(okeys, ocnt, new_size, n_new, tkeys.shape[0])
     mark("finalize")
-    return out
+    return out + (bf, undo)
 
 
 def finalize(okeys, ocnt, new_size, n_new, cap):
@@ -80,11 +105,105 @@ def finalize(okeys, ocnt, new_size, n_new, cap):
             n_new.to(torch.int64), new_size > cap)
 
 
+# -- the Bloom gate posts ---------------------------------------------------
+
+def _runs(bkeys):
+    """Key runs of a sorted batch: (ends bool [B], mult int32 [B]): the
+    last lane of each valid run, and at that lane the run's length."""
+    n = bkeys.shape[0]
+    newkey = torch.ones(n, dtype=torch.bool, device=bkeys.device)
+    newkey[1:] = bkeys[1:] != bkeys[:-1]
+    ends = (torch.cat([newkey[1:], newkey.new_ones(1)])
+            & (bkeys != INT64_MAX))
+    lane = torch.arange(n, dtype=torch.int32, device=bkeys.device)
+    start = torch.cummax(torch.where(newkey, lane, 0), 0).values
+    return ends, lane - start + 1
+
+
+def _gate_weights(ends, mult, n_before, bf_n_hash):
+    """The weight at each run end: mult when all probed bits were set,
+    else mult - 1 (get_bloom_gate_post)."""
+    add = torch.where(n_before == bf_n_hash, mult, mult - 1)
+    return torch.where(ends, add, 0).to(torch.int32)
+
+
+def bloom_gate_post(bkeys, bf, pre, bf_shift, bf_n_hash, wide=False):
+    """The plain gate post (countstep.get_bloom_gate_post) on a sorted
+    batch: run-end dedup, one `bloom.bloom_insert` of the run ends.
+    The probe hashes the raw key, so wide keys are decoded first.
+    Returns (weights int32 [B], bf', undo) (bloom.bloom_insert)."""
+    ends, mult = _runs(bkeys)
+    h = decode_wide(bkeys) if wide else bkeys
+    bf2, n_before, undo = bloom.bloom_insert(
+        bf, h, ends, pre=pre, n_shift=bf_shift, n_hashes=bf_n_hash)
+    return _gate_weights(ends, mult, n_before, bf_n_hash), bf2, undo
+
+
+SENT_PAD = (1 << 32) - 1   # a data key past every sentinel
+
+
+def gate_sent_fits(bf_shift):
+    """The sentinel post needs its (pos << 1 | 1) data keys below
+    SENT_PAD and one sentinel per filter word (countstep.gate_sent_fits)."""
+    return bf_shift <= 30
+
+
+def bloom_gate_sentinel_post(bkeys, bf, pre, bf_shift, bf_n_hash,
+                             wide=False):
+    """The sentinel-merge gate post (countstep._gate_sent_a/_b): the
+    probe as in bloom_gate_post, then the filter update without a
+    searchsorted.  The run ends' probed positions enter one sort as data
+    keys (pos << 1 | 1), with one sentinel key (w << 6) per filter word
+    w in [0, nw]: sentinel w sorts after word w-1's data and before word
+    w's.  The exclusive prefix sum of the unique positions' bit masks,
+    read at the sentinels (pulled out in word order by the compaction
+    kernel), gives each word's OR mask as the difference of adjacent
+    sentinels (sums of unique bits, exact mod 2^32).  The filter comes
+    back new; the undo record is the pre-fold filter itself."""
+    ends, mult = _runs(bkeys)
+    h = decode_wide(bkeys) if wide else bkeys
+    base, zs = bloom.probe_geom(h, pre=pre, n_shift=bf_shift,
+                                n_hashes=bf_n_hash)
+    n_before = bloom.probe_count(bf, base, zs, ends)
+    nw = bf.shape[0]
+    data = torch.stack([torch.where(ends, ((base + z) << 1) | 1, SENT_PAD)
+                        for z in zs]).reshape(-1)
+    sent = torch.arange(nw + 1, dtype=torch.int64, device=bf.device) << 6
+    ks = torch.sort(torch.cat([data, sent])).values
+    is_data = (ks & 1) == 1        # the pads too, after every sentinel
+    uniq = is_data & (ks != torch.cat([ks[:1] ^ 1, ks[:-1]]))
+    m = torch.where(uniq, torch.ones_like(ks) << ((ks >> 1) & 31), 0)
+    cs = i32_bits(torch.cumsum(m, 0) - m)
+    khi = torch.where(is_data, MARK_DROP, ks >> 6).to(torch.int32)
+    _ohi, _olo, cvals, _n = compact.compact(khi, khi, cs)
+    c = cvals[:nw + 1].to(torch.int64)
+    return (_gate_weights(ends, mult, n_before, bf_n_hash),
+            bf | i32_bits(c[1:] - c[:-1]), bf)
+
+
+def run_bloom_gate_post(bkeys, bf, pre, bf_shift, bf_n_hash, wide=False):
+    """The gated fold's post (countstep.run_bloom_gate_post): the
+    sentinel post where it fits (-b up to 30), else the plain post,
+    whose sparse tail serves the large filters (-b37).  Returns
+    (weights, bf', undo)."""
+    post = (bloom_gate_sentinel_post if gate_sent_fits(bf_shift)
+            else bloom_gate_post)
+    return post(bkeys, bf, pre, bf_shift, bf_n_hash, wide)
+
+
 # -- lookups ------------------------------------------------------------
 
 QV_MAX_EK = 1 << 17          # -E marker budget per chunk
 CHKERR_MAX_RUNS = 1 << 17    # chkerr marker budget per chunk
-MARK_DROP = -(1 << 31)       # khi of a dropped lane (bit 31 set)
+
+
+def check_lookup_k(k, command):
+    """The lookup steps JOIN k <= 31 hashes: a k >= 32 table (wide keys)
+    is refused, never looked up with k <= 31 extraction."""
+    if k > 31:
+        raise NotImplementedError(
+            f"{command} against a k={k} table (k >= 32, the wide JOIN) is "
+            f"not yet ported: ROADMAP.md Queue 1, 'wide JOIN'")
 
 
 def lookup_chunk(carg, k, tkeys, tcnt, size, hook=None):

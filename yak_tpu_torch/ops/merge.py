@@ -3,27 +3,33 @@
 the lookup workloads (each sorted query's table count).
 
 `merge_reduce` is the port of the TPU kernel
-`yak_tpu/ops/pallas_merge.py::_make_kernel` in count mode.  For CUDA
-tensors it launches the hand-written Hopper kernel
+`yak_tpu/ops/pallas_merge.py::_make_kernel` in count mode, weighted
+mode (`weights`, the Bloom-gated create pass) and wide mode (`wide`,
+k >= 32).  For CUDA tensors it launches the hand-written Hopper kernel
 `yak_tpu_torch/csrc/merge_reduce.cu` (see the note at its top for the
 design); for CPU tensors it runs `merge_reduce_plain`, the plain torch
 version of the same contract.  There is no fallback between the two: a
 CUDA tensor launches the kernel or raises.
 
-Contract (sorttable.merge_batch_impl in ADD mode with unit weights,
-yak_tpu/ops/sorttable.py:90-171):
+Contract (sorttable.merge_batch_impl in ADD mode, with the zero-weight
+lanes invalid, yak_tpu/ops/sorttable.py:90-171):
 
-  tkeys int64 [cap]   table keys, ascending and unique in [0, size)
-  tcnt  int32 [cap]   table counts
-  size  int32 []      live table length
-  bkeys int64 [B]     batch keys, ascending; invalid lanes = INT64_MAX
-  create              False: keys absent from the table are dropped
+  tkeys   int64 [cap]  table keys, ascending and unique in [0, size)
+  tcnt    int32 [cap]  table counts
+  size    int32 []     live table length
+  bkeys   int64 [B]    batch keys, ascending; invalid lanes = INT64_MAX
+  create               False: keys absent from the table are dropped
+  weights int32 [B]    None (a weight of 1 a lane), or each lane's
+                       weight >= 0; a key absent from the table is then
+                       created only when its weight sum is above 0
+  wide                 the keys are wide-encoded k >= 32 hashes
+                       (ops/keys.encode_wide), which may be negative
 
 returns (okeys int64 [cap], ocnt int32 [cap], new_size int32 [],
 n_new int32 []): every surviving key once, ascending, with count
-min(table count + batch lanes, 1023).  new_size is counted before
-truncation to cap, so new_size > cap is the overflow flag; lanes beyond
-min(new_size, cap) are unspecified.
+min(table count + the sum of its batch weights, 1023).  new_size is
+counted before truncation to cap, so new_size > cap is the overflow
+flag; lanes beyond min(new_size, cap) are unspecified.
 
 `merge_join` is the port of the same TPU kernel's lookup mode
 (`lookup=True`, with `countstep.plookup_prep` and `plookup_post`); its
@@ -75,18 +81,28 @@ def _raise_launch(lib, err, name):
         raise RuntimeError(f"{name} kernel launch failed: {msg}")
 
 
-def merge_reduce(tkeys, tcnt, size, bkeys, create=True):
+def merge_reduce(tkeys, tcnt, size, bkeys, create=True, weights=None,
+                 wide=False):
     """Fold the sorted batch `bkeys` into the table (contract above)."""
     _check(tkeys, tcnt, size, bkeys)
+    if weights is not None:
+        if weights.dtype != torch.int32 or not weights.is_contiguous():
+            raise TypeError("merge_reduce: weights must be contiguous int32")
+        if weights.shape != bkeys.shape or weights.device != bkeys.device:
+            raise ValueError("merge_reduce: weights and keys differ in "
+                             "shape or device")
     if tkeys.device.type == "cpu":
-        return merge_reduce_plain(tkeys, tcnt, size, bkeys, create)
+        return merge_reduce_plain(tkeys, tcnt, size, bkeys, create, weights)
     if tkeys.device.type != "cuda":
         raise ValueError(f"merge_reduce: no kernel for device "
                          f"{tkeys.device}")
-    return _launch(tkeys, tcnt, size, bkeys, create)
+    return _launch(tkeys, tcnt, size, bkeys, create, weights, wide)
 
 
-merge_reduce.launches = 0    # kernel launches, counted in _launch
+# kernel launches, counted in _launch: all of them, and by mode (a
+# weighted wide launch counts in both "weighted" and "wide")
+merge_reduce.launches = 0
+merge_reduce.mode_launches = {"count": 0, "weighted": 0, "wide": 0}
 
 
 @functools.cache
@@ -96,7 +112,8 @@ def _library():
     lib, _secs = cuda_build.load("merge_reduce")
     p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.yak_merge_reduce.argtypes = [
-        p, p, p, i64, p, i64, i32, i64,   # inputs, create, ntiles
+        p, p, p, i64, p, p, i64,          # inputs
+        i32, i32, i64,                    # create, wide, ntiles
         p, p, p, p, p, p,                 # scratch
         p, p, p, p,                       # outputs
         p]                                # stream
@@ -113,7 +130,7 @@ def _library():
     return lib
 
 
-def _launch(tkeys, tcnt, size, bkeys, create):
+def _launch(tkeys, tcnt, size, bkeys, create, weights, wide):
     lib = _library()
     dev = tkeys.device
     cap, nbatch = tkeys.numel(), bkeys.numel()
@@ -137,23 +154,38 @@ def _launch(tkeys, tcnt, size, bkeys, create):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.yak_merge_reduce(
             tkeys.data_ptr(), tcnt.data_ptr(), size.data_ptr(), cap,
-            bkeys.data_ptr(), nbatch, int(bool(create)), ntiles,
-            part.data_ptr(), nb.data_ptr(), seg.data_ptr(), cnt.data_ptr(),
-            carry.data_ptr(), out_off.data_ptr(), okeys.data_ptr(),
-            ocnt.data_ptr(), new_size.data_ptr(), n_new.data_ptr(), stream)
+            bkeys.data_ptr(),
+            None if weights is None else weights.data_ptr(), nbatch,
+            int(bool(create)), int(bool(wide)), ntiles, part.data_ptr(),
+            nb.data_ptr(), seg.data_ptr(), cnt.data_ptr(), carry.data_ptr(),
+            out_off.data_ptr(), okeys.data_ptr(), ocnt.data_ptr(),
+            new_size.data_ptr(), n_new.data_ptr(), stream)
     _raise_launch(lib, err, "merge_reduce")
     merge_reduce.launches += 1
+    modes = merge_reduce.mode_launches
+    if weights is not None:
+        modes["weighted"] += 1
+    if wide:
+        modes["wide"] += 1
+    if weights is None and not wide:
+        modes["count"] += 1
     return okeys, ocnt, new_size, n_new
 
 
-def merge_reduce_plain(tkeys, tcnt, size, bkeys, create=True):
-    """The plain torch version of the kernel's contract: the sort-merge
-    engine (sorttable.merge_batch_core) with unit weights and the
-    INT64_MAX lanes invalid.  Data-independent shapes throughout, so it
-    runs without a host sync on any device."""
+def merge_reduce_plain(tkeys, tcnt, size, bkeys, create=True,
+                       weights=None):
+    """The plain torch version of the kernel's contract, in every mode:
+    the sort-merge engine (sorttable.merge_batch_core) with the INT64_MAX
+    and zero-weight lanes invalid; it orders wide-encoded keys as int64,
+    like any other.  Data-independent shapes throughout, so it runs
+    without a host sync on any device."""
+    valid = bkeys != INT64_MAX
+    if weights is None:
+        weights = torch.ones_like(bkeys, dtype=torch.int32)
+    else:
+        valid = valid & (weights > 0)
     okeys, ocnt, new_size, n_new = st.merge_batch_core(
-        tkeys, tcnt, size, bkeys, torch.ones_like(bkeys, dtype=torch.int32),
-        bkeys != INT64_MAX, create)
+        tkeys, tcnt, size, bkeys, weights, valid, create)
     return okeys, ocnt, new_size, n_new.to(torch.int32)
 
 

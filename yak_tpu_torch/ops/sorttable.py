@@ -3,11 +3,16 @@ engine and the semantic mirror the merge-reduce kernel is held to.
 
 Port of `yak_tpu/ops/sorttable.py` (make_table, grow, hist,
 compact_where, and merge_batch in ADD mode).  The table is a sorted
-dense array of (hash, count) with a live size; a batch merge is a concat
-of the packed keys `hash << 1 | is_batch` (invalid lanes INT64_MAX),
-one `torch.sort`, per-run sums read off a prefix sum at run ends, and a
-compaction sort of the survivors.  Semantics are the reference's
-(htab.c): saturating 10-bit counts, create vs increment-only.
+dense array of (key, count) with a live size; a batch merge is a concat
+of the table and batch keys (invalid lanes INT64_MAX), one `torch.sort`
+whose indices tell table lanes from batch lanes, per-run sums and
+table presence read off a prefix sum at run ends, and a compaction sort
+of the survivors.  Semantics are the reference's (htab.c): saturating 10-bit
+counts, create vs increment-only.
+
+Keys are any int64 below INT64_MAX: k <= 31 hashes as they are, k >= 32
+hashes wide-encoded (`ops/keys.encode_wide`), whose int64 order is their
+unsigned order; the engine needs nothing else to serve both.
 
 All shapes are data-independent, so no step waits on the device.
 """
@@ -54,7 +59,8 @@ def merge_batch(tkeys, tcnt, size, h, add, valid, create=True,
     """Merge a (possibly duplicate-bearing) batch into the table, ADD
     mode: cnt = min(table + sum(batch adds), max_count).
 
-    h int64 [B] hashes (< 2^62), add int [B] weights, valid bool [B].
+    h int64 [B] keys (< INT64_MAX), add int [B] weights >= 0, valid
+    bool [B].
     Returns (tkeys, tcnt, size, n_new, overflow): n_new = newly created
     distinct keys; overflow True if the merged size exceeded cap (the
     result is then truncated and the caller must grow and retry)."""
@@ -73,15 +79,15 @@ def merge_batch_core(tkeys, tcnt, size, h, add, valid, create=True,
     cap = tkeys.shape[0]
     dev = tkeys.device
     lane = torch.arange(cap, dtype=torch.int64, device=dev)
-    pt = torch.where(lane < size.to(torch.int64), tkeys << 1, INT64_MAX)
-    pb = torch.where(valid, (h << 1) | 1, INT64_MAX)
-    K, order = torch.sort(torch.cat([pt, pb]))
+    pt = torch.where(lane < size.to(torch.int64), tkeys, INT64_MAX)
+    pb = torch.where(valid, h, INT64_MAX)
+    # a lane's source is its index: table lanes come first in the concat
+    key, order = torch.sort(torch.cat([pt, pb]))
     V = torch.cat([tcnt, add.to(torch.int32)])[order]
-    real = K != INT64_MAX
-    key = K >> 1
-    is_table = real & ((K & 1) == 0)
+    real = key != INT64_MAX
+    is_table = real & (order < cap)
 
-    n = K.shape[0]
+    n = key.shape[0]
     newkey = torch.ones(n, dtype=torch.bool, device=dev)
     newkey[1:] = key[1:] != key[:-1]
     nxt_new = torch.cat([newkey[1:], newkey.new_ones(1)])

@@ -1,21 +1,35 @@
 """KmerTable: the counting table of the count path.
 
-Port of `yak_tpu/table.py` for `count` without `-b` (k <= 31): the
-sorted (hash, count) table lives on its device between folds; host code
-chunks are grouped and folded in one step each (extract + sort +
-merge-reduce, `ops/countstep.py`); the overflow flag of a fold is read
-one fold late, and an overflowed fold is replayed against the preserved
-pre-fold table after doubling its capacity.  Reads (items, hist, shrink,
-dump) flush first.
+Port of `yak_tpu/table.py` for `count` on one device, k in [1, 63], with
+the Bloom prefilter of `-b`: the sorted (hash, count) table lives on its
+device between folds; host code chunks are grouped and folded in one
+step each (extract + sort [+ Bloom gate] + merge-reduce,
+`ops/countstep.py`); the overflow flag of a fold is read one fold late,
+and an overflowed fold is replayed against the preserved pre-fold table
+after doubling its capacity.  Reads (items, hist, shrink, dump) flush
+first.
+
+k >= 32 keys are held wide-encoded (`ops/keys.encode_wide`) so that the
+table's int64 order is their unsigned order; items, to_arrays,
+from_arrays, dump and restore speak raw u64 hashes.
+
+The Bloom filter (`bf_shift`, `bf_n_hash`) exists when the reference
+would make one (bf_shift > pre and 9 <= bf_shift - pre <= 55,
+bbf.c:9, htab.c:23-27) and gates the folds that create keys.  A gated
+fold changes the filter, so the one-fold-late replay first takes the
+filter back to its pre-fold state with the fold's undo record
+(`ops/bloom.rollback`): the pre-fold filter kept by reference where
+the update built a new one (up to -b30), or the old values of the words
+an in-place update touched (larger filters: a copy of a -b37 filter
+would take 16 GiB).
 
 The lookup workloads (qv, chkerr) read `keys`, `cnt` and `size` after
 `flush` and JOIN their queries against them (`ops/countstep.lookup_chunk`).
 
-Not ported here: the Bloom filter (`-b`), the wide k >= 32 path, the
-table algebra and the OR-merge restore into an existing table
-(ROADMAP.md Queue 1).  The TPU package's transient-fault retry
-(`yak_tpu/table.py:493-502`) is deliberately absent: on the card it
-would hide a fault.
+Not ported here: the serial-exact Bloom gate of `-X`, the table algebra
+and the OR-merge restore into an existing table (ROADMAP.md Queue 1).
+The TPU package's transient-fault retry (`yak_tpu/table.py:493-502`) is
+deliberately absent: on the card it would hide a fault.
 """
 
 import sys
@@ -26,9 +40,11 @@ import torch
 from yak_tpu_torch import YAK_LOAD_ALL, YAK_MAX_COUNT
 from yak_tpu_torch.io import yakfmt
 from yak_tpu_torch.io.pack import detect_periodic, pack_planes, pack_planes2
-from yak_tpu_torch.ops import countstep
+from yak_tpu_torch.ops import bloom, countstep
 from yak_tpu_torch.ops import sorttable as st
-from yak_tpu_torch.ops.keys import torch_to_u64, u32_to_torch, u64_to_torch
+from yak_tpu_torch.ops.keys import (decode_wide, encode_wide, torch_to_u64,
+                                    u32_to_torch, u64_to_torch)
+from yak_tpu_torch.ops.kmers import MAX_K
 
 
 def _log(msg):
@@ -42,21 +58,21 @@ class KmerTable:
     min(c + m1 + m2, 1023) == min(min(c + m1, 1023) + m2, 1023).
 
     `device` is required: the table and every fold live there.  A CUDA
-    device runs the hand-written merge-reduce kernel, the CPU its plain
-    torch version.  `phase_hook`, when set, is called with the name of
-    each fold phase as it is queued ("start", "h2d", "extract", "sort",
-    "merge", "finalize"), for per-phase timing."""
+    device runs the hand-written kernels, the CPU their plain torch
+    versions.  `phase_hook`, when set, is called with the name of each
+    fold phase as it is queued ("start", "h2d", "extract", "sort",
+    "gate" on a gated fold, "merge", "finalize"), for per-phase
+    timing."""
 
     def __init__(self, k, pre=10, cap_log2=16, flush_lanes=None,
-                 cap_hinted=None, *, device):
+                 cap_hinted=None, *, device, bf_shift=0, bf_n_hash=4):
         if pre < 10:
             raise ValueError("pre must be at least YAK_COUNTER_BITS (10)")
-        if not 1 <= k <= 31:
-            raise NotImplementedError(
-                f"k={k}: the port counts k <= 31 only; k >= 32 (the "
-                f"hash_long wide path) is ROADMAP.md Queue 1, 'k >= 32'")
+        if not 1 <= k <= MAX_K:
+            raise ValueError(f"k={k}: k must be in [1, {MAX_K}]")
         self.k = k
         self.pre = pre
+        self.wide = k > 31
         self.device = torch.device(device)
         self.flush_lanes = flush_lanes  # None = max(2^23, cap)
         # explicit capacity hint (-K): skip the group-size growth prior
@@ -70,10 +86,18 @@ class KmerTable:
         self._pend_codes = []  # deferred host code chunks (count path)
         self._pend_create = True
         # one-step-late overflow bookkeeping: (pre-fold state, fold
-        # input, device overflow flag)
+        # input, device overflow flag, the filter's undo record or None)
         self._last_step = None
         self._group_g = None   # fixed chunks-per-group
         self.phase_hook = None
+        self.bf = None
+        self.bf_shift = bf_shift
+        self.bf_n_hash = bf_n_hash
+        # a per-shard filter of at least one 512-bit block and at most
+        # 2^64 bits, else yak_bf_init returns NULL and counting runs
+        # ungated (bbf.c:9, htab.c:23-27)
+        if bf_shift > pre and 9 <= bf_shift - pre <= 64 - 9:
+            self.bf = bloom.make_bloom(bf_shift, self.device)
 
     @property
     def cap(self):
@@ -174,42 +198,62 @@ class KmerTable:
             self.keys, self.cnt, self.size = st.grow(
                 self.keys, self.cnt, self.size, need)
         prev = (self.keys, self.cnt, self.size)
-        ovf = self._run_step(carg, prev)
-        self._last_step = (prev, carg, ovf)
+        gated = self.bf is not None and self._pend_create
+        ovf, undo = self._run_step(carg, prev, gated)
+        self._last_step = (prev, carg, ovf, undo)
 
-    def _run_step(self, carg, state):
-        """Queue one fold against `state` (keys, cnt, size); leaves the
-        result in self.*; returns the device overflow flag."""
+    def _run_step(self, carg, state, gated):
+        """Queue one fold against `state` (keys, cnt, size), through the
+        Bloom gate when `gated`; leaves the result in self.* (and the
+        filter in self.bf); returns the device overflow flag and the
+        filter's undo record (None when ungated)."""
         keys, cnt, size = state
-        self.keys, self.cnt, self.size, _n_new, ovf = countstep.count_step(
-            carg, self.k, keys, cnt, size, self._pend_create,
-            hook=self.phase_hook)
-        return ovf
+        gate = ((self.bf, self.pre, self.bf_shift, self.bf_n_hash)
+                if gated else None)
+        (self.keys, self.cnt, self.size, _n_new, ovf, bf,
+         undo) = countstep.count_step(carg, self.k, keys, cnt, size,
+                                      self._pend_create, gate=gate,
+                                      hook=self.phase_hook)
+        if gated:
+            self.bf = bf
+        return ovf, undo
 
     def _check_last_step(self):
         """Settle the previous fold: on overflow, double the preserved
-        pre-fold table and replay the fold (the step never writes into
-        its inputs, so that state is intact)."""
+        pre-fold table, take the filter back to its pre-fold state, and
+        replay the fold (the step never writes into its table inputs, so
+        that state is intact)."""
         if self._last_step is None:
             return
-        prev, carg, ovf = self._last_step
+        prev, carg, ovf, undo = self._last_step
         self._last_step = None
         while bool(ovf):
             keys, cnt, size = prev
             prev = st.grow(keys, cnt, size, 2 * keys.shape[0])
             # self.cap must reflect the grown table before the replay
             self.keys, self.cnt, self.size = prev
-            ovf = self._run_step(carg, prev)
+            gated = undo is not None
+            if gated:
+                self.bf = bloom.rollback(self.bf, undo)
+            ovf, undo = self._run_step(carg, prev, gated)
 
     def insert_hashes(self, h, valid, create_new=True):
         """Count a raw (duplicate-bearing) int64 hash batch into the table
         (deferred; folded in at the next flush by the plain sort-merge,
-        as the JAX package folds it by its XLA merge_batch).
-        create_new=False increments existing keys only (htab.c:71-75)."""
+        as the JAX package folds it by its XLA merge_batch).  k >= 32
+        hashes are the raw u64 bit patterns.  create_new=False
+        increments existing keys only (htab.c:71-75)."""
+        if self.bf is not None and create_new:
+            raise NotImplementedError(
+                "insert_hashes through the Bloom gate is not yet ported: "
+                "ROADMAP.md Queue 1, 'Bloom-gated raw hash batches'")
         if create_new != self._pend_create:
             self.flush()
             self._pend_create = create_new
-        self._pend.append((h.to(self.device), valid.to(self.device)))
+        h = h.to(self.device)
+        if self.wide:
+            h = encode_wide(h)
+        self._pend.append((h, valid.to(self.device)))
         self._pend_lanes += h.shape[0]
         if self._pend_lanes >= (self.flush_lanes or max(1 << 23, self.cap)):
             self.flush()
@@ -235,10 +279,14 @@ class KmerTable:
 
     # -- cold-path table ops --------------------------------------------
 
+    def _raw(self, keys):
+        """Table keys -> raw hashes (k >= 32 keys are wide-encoded)."""
+        return decode_wide(keys) if self.wide else keys
+
     def items(self):
         """Host (hash u64[N], count i32[N]) of live entries (sorted)."""
         n = self.tot
-        return (torch_to_u64(self.keys[:n]).copy(),
+        return (torch_to_u64(self._raw(self.keys[:n])).copy(),
                 self.cnt[:n].cpu().numpy().copy())
 
     def hist(self):
@@ -250,6 +298,12 @@ class KmerTable:
         lane = torch.arange(self.cap, device=self.device)
         self.cnt = torch.where(lane < self.size,
                                torch.full_like(self.cnt, value), self.cnt)
+
+    def destroy_bf(self):
+        """Drop the Bloom filter (yak_ch_destroy_bf); later folds run
+        ungated.  Pending folds are folded through it first."""
+        self.flush()
+        self.bf = None
 
     def clear_counts(self):
         """Zero every live count (yak_ch_clear)."""
@@ -278,6 +332,8 @@ class KmerTable:
         self._pend, self._pend_codes = [], []
         self._pend_lanes, self._last_step = 0, None
         self.keys = u64_to_torch(keys, self.device)
+        if self.wide:
+            self.keys = encode_wide(self.keys)
         self.cnt = torch.tensor(np.asarray(cnt, np.int32),
                                 device=self.device)
         self.size = torch.tensor(n, dtype=torch.int32, device=self.device)
@@ -304,7 +360,7 @@ class KmerTable:
         n = self.tot
         keys = np.zeros(self.cap, np.uint64)
         cnt = np.full(self.cap, -1, np.int32)
-        keys[:n] = torch_to_u64(self.keys[:n])
+        keys[:n] = torch_to_u64(self._raw(self.keys[:n]))
         cnt[:n] = self.cnt[:n].cpu().numpy()
         return keys, cnt, n
 
