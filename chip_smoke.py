@@ -9,8 +9,9 @@ Phases, in order; any failure exits non-zero:
   1. the card's name and power limit (nvidia-smi), torch and CUDA
      versions;
   2. build the hand-written kernels (csrc/merge_reduce.cu, which holds
-     the merge-reduce and merge-JOIN entry points, and csrc/compact.cu)
-     with one nvcc each, side by side, into build/yak_tpu_torch/;
+     the merge-reduce and merge-JOIN entry points, csrc/compact.cu and
+     csrc/sort.cu) with one nvcc each, side by side, into
+     build/yak_tpu_torch/;
   3. kernel vs its plain torch version on the card: the merge cases of
      tests/torch_merge_cases.py, and the inputs of every fold of one
      count of the phase 4 workload (captured as the count path passes
@@ -81,7 +82,25 @@ Phases, in order; any failure exits non-zero:
      of pass 2 included), and every compaction call of the sentinel gate
      post; timed at the main path's shapes;
  14. the CLI's count -b24 (two files) and count -k33 in this process on
-     the card and on the CPU must dump byte-identical .yak files.
+     the card and on the CPU must dump byte-identical .yak files; phases
+     1-14 must not have launched the sort kernel;
+ 15. the sort kernel (csrc/sort.cu, the psort engine's batch sort) vs its
+     plain torch version on the card, bit for bit: every case of
+     tests/torch_sort_cases.py, and every sort call of a warm-up run of
+     phase 16's workloads (captured as the psort engine passes them, so
+     at its exact shapes); each instantiation (int64 or int32 keys, with
+     or without an int32 payload) timed at its largest captured call,
+     beside torch.sort on the same keys (the default engine's call);
+ 16. the psort engine at real size, with YAK_TPU_PSORT=1 set in this
+     process and unset after: phase 4's count (6,226,713 /
+     669014fae5d3), phase 11's k=33 count (6,412,500 / a56a84001d46),
+     phase 10's -b24 literal two-pass (2,044,839 / c94d8a6166ad, the
+     plain gate post: no compaction launch), qv seed 101 against the
+     psort count's table (48,000,000, cnt[0] 0, 70a2f8de2e2c), chkerr on
+     phase 8's contigs and reads (the same rows, no compaction launch),
+     each launching the sort kernel, with per-fold and per-chunk splits;
+     then the CLI's count -k31 on the card and on the CPU under the
+     variable must dump byte-identical .yak files.
 
 The last two lines of stdout are a JSON line of per-kernel results
 (`launches` summed over the paths that drive the kernel, each with the
@@ -89,7 +108,9 @@ counts set to 0 just before it and read just after, and by path under
 `launches_by_path`; `ms` and `plain_ms` back to back, `device_ms` and
 `plain_device_ms` device only, see time_ms; `bound_ms` the bytes the
 call must move over the H100's 3.35 TB/s; `library_ms` one PyTorch call
-computing the same function, where there is one) and the contract line
+computing the same function, where there is one; the sort's entries,
+one per instantiation, name the other four TPU kernels it replaces
+under `replaces_also`) and the contract line
 {"ok": true, "device": {...}}.  Imports no JAX.
 """
 
@@ -115,6 +136,7 @@ N_READS = 400_000
 GENOME_LEN = 2_000_000
 ERR = 0.003
 CHUNK_READS = 27_776                 # chunk = CHUNK_READS * 151 bases
+SORT_INSTANCES = ("i64", "i64_i32", "i32", "i32_i32")   # ops/sort.INSTANCES
 KERNELS = {
     "merge_reduce": {"name": "merge_reduce", "route": "cuda",
                      "source": "yak_tpu_torch/csrc/merge_reduce.cu",
@@ -132,6 +154,13 @@ KERNELS = {
     "compact": {"name": "compact", "route": "cuda",
                 "source": "yak_tpu_torch/csrc/compact.cu",
                 "replaces": "yak_tpu/ops/pallas_compact.py:124"},
+    **{f"sort_{inst}": {
+        "name": f"sort_{inst}", "route": "cuda",
+        "source": "yak_tpu_torch/csrc/sort.cu",
+        "replaces": "yak_tpu/ops/pallas_sort.py:250",
+        "replaces_also": [f"yak_tpu/ops/pallas_sort.py:{line}"
+                          for line in (167, 204, 107, 134)]}
+       for inst in SORT_INSTANCES},
 }
 QV_SEEDS = {101: "70a2f8de2e2c", 102: "72893d32c67e"}   # bench.py:250
 QV_SUM = 48_000_000                                    # bench.py:251
@@ -787,48 +816,59 @@ class _Timeline:
         ev.record()
         self.marks.append((name, ev, time.perf_counter()))
 
-    def lookup_chunk(self, *args):
+    def lookup_chunk(self, *args, **kw):
         self.mark("start")
-        return self.countstep.lookup_chunk(*args, hook=self.mark)
+        return self.countstep.lookup_chunk(*args, hook=self.mark, **kw)
 
-    def qv_join_post(self, *args):
-        out = self.countstep.qv_join_post(*args)
+    def qv_join_post(self, *args, **kw):
+        out = self.countstep.qv_join_post(*args, **kw)
         self.mark("post")
         return out
 
 
 def qv_path(table, paths, card):
     """Phase 7; returns the JOIN launches of the first timed run."""
-    from yak_tpu_torch.models import qv
     from yak_tpu_torch.ops import merge
 
-    n_lookups = N_READS * (READ_LEN - K + 1)
     first = None
-    for seed, digest in QV_SEEDS.items():
-        tl = _Timeline(qv.countstep)
-        qv.countstep = tl
+    for seed in QV_SEEDS:
         merge.merge_join.launches = 0
-        try:
-            t0 = time.perf_counter()
-            cnt = qv.run_qv(qv_opts(), paths[seed], table, out=io.StringIO())
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        finally:
-            qv.countstep = tl.countstep
+        qv_run(table, paths, seed, card)
         launches = merge.merge_join.launches
+        log(f"  seed {seed}: JOIN launches {launches}")
         first = launches if first is None else first
-        dg = hashlib.md5(np.ascontiguousarray(cnt, np.int64)
-                         .tobytes()).hexdigest()[:12]
-        log(f"  seed {seed}: cnt sum {int(cnt.sum())}, cnt[0] "
-            f"{int(cnt[0])}, digest {dg}, JOIN launches {launches}; wall "
-            f"{wall:.4f} s, {n_lookups / wall:.1f} lookups/s [{card}]")
-        if int(cnt.sum()) != QV_SUM or int(cnt[0]) != 0 or dg != digest:
-            raise AssertionError(f"qv seed {seed}: gates failed (want sum "
-                                 f"{QV_SUM}, cnt[0] 0, digest {digest})")
         if launches <= 0:
             raise AssertionError("the qv path never launched the JOIN")
-        split_chunks(tl.marks, card)
     return first
+
+
+def qv_run(table, paths, seed, card, timeline=True):
+    """One qv run of a seed's read set, its gates checked; prints the
+    rate and, with `timeline`, the per-chunk split."""
+    from yak_tpu_torch.models import qv
+
+    n_lookups = N_READS * (READ_LEN - K + 1)
+    tl = _Timeline(qv.countstep)
+    if timeline:
+        qv.countstep = tl
+    try:
+        t0 = time.perf_counter()
+        cnt = qv.run_qv(qv_opts(), paths[seed], table, out=io.StringIO())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        qv.countstep = tl.countstep
+    digest = QV_SEEDS[seed]
+    dg = hashlib.md5(np.ascontiguousarray(cnt, np.int64)
+                     .tobytes()).hexdigest()[:12]
+    log(f"  seed {seed}: cnt sum {int(cnt.sum())}, cnt[0] {int(cnt[0])}, "
+        f"digest {dg}; wall {wall:.4f} s, {n_lookups / wall:.1f} lookups/s "
+        f"[{card}]")
+    if int(cnt.sum()) != QV_SUM or int(cnt[0]) != 0 or dg != digest:
+        raise AssertionError(f"qv seed {seed}: gates failed (want sum "
+                             f"{QV_SUM}, cnt[0] 0, digest {digest})")
+    if timeline:
+        split_chunks(tl.marks, card)
 
 
 def split_chunks(marks, card):
@@ -856,7 +896,8 @@ def split_chunks(marks, card):
 
 
 def chkerr_path(table, paths, card):
-    """Phase 8; returns the compaction launches of the reads run."""
+    """Phase 8; returns the compaction launches of the reads run and
+    {input: output text}."""
     from yak_tpu_torch.ops import compact, countstep, merge
 
     launches = 0
@@ -901,7 +942,7 @@ def chkerr_path(table, paths, card):
                              "budget of 64 differs")
     log("  contigs at a marker budget of 64 (every chunk over it): output "
         "identical")
-    return launches
+    return launches, texts
 
 
 def lookup_cli_check():
@@ -947,26 +988,31 @@ def lookup_cli_check():
 # -- phases 10-14: the -b two-pass and k >= 32 ---------------------------
 
 def reset_counts():
-    """Every kernel launch count to 0."""
-    from yak_tpu_torch.ops import compact, merge
+    """Every kernel launch count to 0 (the sort kernel's by
+    instantiation; its total stays, for the check after phase 14)."""
+    from yak_tpu_torch.ops import compact, merge, sort
 
     merge.merge_reduce.launches = 0
     for mode in merge.merge_reduce.mode_launches:
         merge.merge_reduce.mode_launches[mode] = 0
     merge.merge_join.launches = 0
     compact.compact.launches = 0
+    for inst in sort.sort.mode_launches:
+        sort.sort.mode_launches[inst] = 0
 
 
 def read_counts():
     """The launch counts by kernels-line entry."""
-    from yak_tpu_torch.ops import compact, merge
+    from yak_tpu_torch.ops import compact, merge, sort
 
     modes = merge.merge_reduce.mode_launches
     return {"merge_reduce": modes["count"],
             "merge_reduce_weighted": modes["weighted"],
             "merge_reduce_wide": modes["wide"],
             "merge_join": merge.merge_join.launches,
-            "compact": compact.compact.launches}
+            "compact": compact.compact.launches,
+            **{f"sort_{inst}": n
+               for inst, n in sort.sort.mode_launches.items()}}
 
 
 def check_launched(counts, needed, what):
@@ -1051,13 +1097,21 @@ def run_bloom(files, bf_shift, dev, cap_log2=23):
     return table
 
 
-def bloom_paths(dev, card, d, reads):
-    """Phase 10; returns ({path: launch counts}, {path: captured merge
-    calls}, captured compaction calls of the -b24 gate posts)."""
+def bloom_files(d, reads):
+    """bench.py's bloom input (the reads as one single-line FASTA) under
+    two paths: a hard link, not a symlink, so count takes the literal
+    two-pass and not the same-file shortcut."""
     fa = os.path.join(d, "bloom_reads.fa")
     write_fasta(fa, reads)
     link = os.path.join(d, "bloom_reads_link.fa")
-    os.link(fa, link)          # a second path, not a symlink: no shortcut
+    os.link(fa, link)
+    return [fa, link]
+
+
+def bloom_paths(dev, card, d, reads):
+    """Phase 10; returns ({path: launch counts}, {path: captured merge
+    calls}, captured compaction calls of the -b24 gate posts)."""
+    fa, link = bloom_files(d, reads)
     n_extract = 2 * N_READS * (READ_LEN - K + 1)   # bench.py:536
     counts, merges, compacts = {}, {}, []
     for name, bf_shift, files, needed in (
@@ -1222,37 +1276,184 @@ def mode_kernel_checks(dev, merges, compacts, card):
     return out, err["merge_reduce"], cerr
 
 
-def count_cli_check():
+def count_cli_check(psort=False):
     """Phase 14: count -b24 over two files and count -k33 through the CLI
-    entry point, on the card and on the CPU."""
+    entry point, on the card and on the CPU.  With `psort` (phase 16):
+    count -k31 of phase 5's FASTQ and FASTA under the psort engine,
+    whose CUDA runs must launch the sort kernel."""
     from yak_tpu_torch import cli
 
     d = tempfile.mkdtemp(prefix="yak_tpu_torch_smoke_")
     try:
         fq, fa = write_inputs(d)
-        for args in (["-b24", fq, fa], ["-k33", fq]):
+        arg_sets = ([["-k31", fq], ["-k31", fa]] if psort
+                    else [["-b24", fq, fa], ["-k33", fq]])
+        for args in arg_sets:
             outs = {}
             for devname in ("cuda", "cpu"):
                 out = os.path.join(d, f"out_{devname}.yak")
                 err = io.StringIO()
-                with contextlib.redirect_stderr(err):
+                reset_counts()
+                with contextlib.redirect_stderr(err), (
+                        psort_engine() if psort
+                        else contextlib.nullcontext()):
                     ret = cli.main(["count", "-K200k", "--device", devname,
                                     "-o", out, *args])
+                if psort and devname == "cuda":
+                    check_launched(read_counts(), ("sort_i64",),
+                                   f"psort CLI count {args[-1]}")
                 if ret != 0:
                     raise AssertionError(f"CLI count {args[0]} failed on "
                                          f"{devname}: {err.getvalue()}")
                 with open(out, "rb") as f:
                     outs[devname] = f.read()
+            name = " ".join([args[0], os.path.basename(args[1])])
             if outs["cuda"] != outs["cpu"]:
-                raise AssertionError(f"count {args[0]}: CUDA and CPU dumps "
+                raise AssertionError(f"count {name}: CUDA and CPU dumps "
                                      f"differ")
-            log(f"  count {args[0]}: CUDA and CPU dumps identical "
+            log(f"  count {name}: CUDA and CPU dumps identical "
                 f"({len(outs['cuda'])} bytes, md5 "
                 f"{hashlib.md5(outs['cuda']).hexdigest()[:12]})")
     finally:
         for name in os.listdir(d):
             os.unlink(os.path.join(d, name))
         os.rmdir(d)
+
+
+# -- phases 15-16: the psort engine -------------------------------------
+
+@contextlib.contextmanager
+def psort_engine():
+    """YAK_TPU_PSORT=1 inside the block (the port reads it at each fold
+    and at each qv or chkerr run), unset after."""
+    os.environ["YAK_TPU_PSORT"] = "1"
+    try:
+        yield
+    finally:
+        del os.environ["YAK_TPU_PSORT"]
+
+
+def psort_workloads(dev, card, chunks, files, paths, ch_texts, timed):
+    """Phase 16's workloads under the psort engine, each with its gates,
+    and with the launch counts set to 0 just before it and read just
+    after; with `timed`, the per-fold and per-chunk splits.  Returns
+    {path: launch counts}."""
+    counts = {}
+
+    def done(name, needed):
+        counts[name] = read_counts()
+        check_launched(counts[name], needed, name)
+        if counts[name]["compact"]:
+            raise AssertionError(f"{name} launched the compaction kernel")
+
+    with psort_engine():
+        table = None
+        for name, k, total, digest, needed in (
+                ("psort count", K, TOTAL_GATE, HIST_GATE,
+                 ("sort_i64", "merge_reduce")),
+                ("psort k33", K33, K33_DISTINCT, K33_HIST,
+                 ("sort_i64", "merge_reduce_wide"))):
+            reset_counts()
+            with fold_timeline() as tl:
+                t0 = time.perf_counter()
+                counted = run_count(chunks, dev, k=k)
+                wall = time.perf_counter() - t0
+            done(name, needed)
+            check_gates(counted, name, total, digest)
+            log(f"  {name} wall {wall:.4f} s, "
+                f"{N_READS * (READ_LEN - k + 1) / wall:.1f} k-mers/s [{card}]")
+            if timed:
+                fold_split(tl.marks, wall, card, name)
+            if k == K:
+                table = counted
+            del counted
+
+        name = "psort b24 literal"
+        reset_counts()
+        with fold_timeline() as tl:
+            t0 = time.perf_counter()
+            gated = run_bloom(files, 24, dev)
+            wall = time.perf_counter() - t0
+        done(name, ("sort_i64", "merge_reduce_weighted", "merge_reduce"))
+        check_gates(gated, name, BLOOM_DISTINCT, BLOOM_HIST)
+        del gated
+        log(f"  {name}: wall {wall:.4f} s, "
+            f"{2 * N_READS * (READ_LEN - K + 1) / wall:.1f} extraction "
+            f"units/s [{card}]")
+        if timed:
+            fold_split(tl.marks, wall, card, name)
+
+        reset_counts()
+        qv_run(table, paths, 101, card, timeline=timed)
+        done("psort qv", ("sort_i64_i32", "sort_i32", "merge_join"))
+
+        reset_counts()
+        for name, chunk in CHKERR_CHUNKS.items():
+            t0 = time.perf_counter()
+            text = run_chkerr(table, paths[name], chunk)
+            wall = time.perf_counter() - t0
+            if text != ch_texts[name]:
+                raise AssertionError(f"psort chkerr {name}: output differs "
+                                     f"from phase 8's")
+            log(f"  psort chkerr {name}: {text.count(chr(10))} rows, md5 "
+                f"{hashlib.md5(text.encode()).hexdigest()[:12]} (phase 8's),"
+                f" wall {wall:.4f} s [{card}]")
+        done("psort chkerr", ("sort_i64_i32", "sort_i32_i32", "merge_join"))
+    return counts
+
+
+def check_sort(args, label):
+    """Sort kernel vs plain on one (keys, payload): bit-equal, else
+    raises; returns the max abs difference, 0."""
+    from yak_tpu_torch.ops import sort
+
+    got = sort.sort(*args)
+    want = sort.sort_plain(*args)
+    torch.cuda.synchronize()
+    if not (torch.equal(got[0], want[0])
+            and (args[1] is None or torch.equal(got[1], want[1]))):
+        raise AssertionError(f"{label}: sort kernel != plain")
+    return 0
+
+
+def sort_kernel_checks(dev, card, chunks, files, paths, ch_texts):
+    """Phase 15; returns the kernels-line entries of the sort's
+    instantiations."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_sort_cases import CASES
+    from yak_tpu_torch.ops import sort
+
+    for name, build in CASES.items():
+        keys, pay = build()
+        check_sort((torch.from_numpy(keys).to(dev),
+                    None if pay is None else torch.from_numpy(pay).to(dev)),
+                   name)
+    log(f"  {len(CASES)} cases equal")
+    with captured("sort", "sort") as calls:
+        psort_workloads(dev, card, chunks, files, paths, ch_texts,
+                        timed=False)
+    calls = [(a[0], a[1] if len(a) > 1 else None) for a, _kw in calls]
+    for i, args in enumerate(calls):
+        check_sort(args, f"captured sort {i}")
+    log(f"  kernel == plain on all {len(calls)} sort calls captured from a "
+        f"warm-up run of phase 16's workloads")
+
+    out = {}
+    for inst in SORT_INSTANCES:
+        mine = [a for a in calls if sort.instance(*a) == inst]
+        if not mine:
+            raise AssertionError(f"the psort engine made no sort_{inst} call")
+        keys, pay = max(mine, key=lambda a: a[0].numel())
+        n = keys.numel()
+        # each input lane read once and each output lane written once
+        lane_bytes = keys.element_size() + (0 if pay is None else 4)
+        out[f"sort_{inst}"] = time_kernel(
+            sort.sort, sort.sort_plain, (keys, pay),
+            2 * n * lane_bytes / HBM_BYTES_PER_S * 1e3,
+            lambda keys=keys: torch.sort(keys),
+            f"sort_{inst} (n {n}, the largest of {len(mine)} calls; "
+            f"library: torch.sort of the keys)", card)
+    return out
 
 
 def main():
@@ -1273,7 +1474,7 @@ def main():
 
     phase("2. build (one nvcc per kernel source, side by side)")
     t0 = time.perf_counter()
-    built = cuda_build.load_all(["merge_reduce", "compact"])
+    built = cuda_build.load_all(["merge_reduce", "compact", "sort"])
     for name, (_lib, secs) in built.items():
         log(f"  built {cuda_build.library_path(name).name} in {secs:.3f} s")
     log(f"  build wall {time.perf_counter() - t0:.3f} s")
@@ -1306,7 +1507,8 @@ def main():
         by_path["qv"] = {"merge_join": qv_path(table, paths, card)}
 
         phase("8. chkerr at real size")
-        by_path["chkerr"] = {"compact": chkerr_path(table, paths, card)}
+        n, ch_texts = chkerr_path(table, paths, card)
+        by_path["chkerr"] = {"compact": n}
     finally:
         for name in os.listdir(d):
             os.unlink(os.path.join(d, name))
@@ -1346,6 +1548,32 @@ def main():
 
     phase("14. count -b24 / -k33 CLI on the card vs on the CPU")
     count_cli_check()
+    from yak_tpu_torch.ops import sort
+
+    if sort.sort.launches:
+        raise AssertionError(f"phases 1-14 launched the sort kernel "
+                             f"{sort.sort.launches} times")
+    log("  phases 1-14 launched the sort kernel 0 times")
+
+    d = tempfile.mkdtemp(prefix="yak_tpu_torch_psort_")
+    try:
+        t0 = time.perf_counter()
+        files = bloom_files(d, reads)
+        paths = write_lookup_inputs(d, reads)
+        log(f"  psort inputs written in {time.perf_counter() - t0:.3f} s")
+
+        phase("15. sort kernel vs plain torch on the card")
+        results.update(sort_kernel_checks(dev, card, chunks, files, paths,
+                                          ch_texts))
+
+        phase("16. the psort engine at real size")
+        by_path.update(psort_workloads(dev, card, chunks, files, paths,
+                                       ch_texts, timed=True))
+    finally:
+        for name in os.listdir(d):
+            os.unlink(os.path.join(d, name))
+        os.rmdir(d)
+    count_cli_check(psort=True)
     torch.cuda.synchronize()
 
     print(json.dumps({"kernels": [

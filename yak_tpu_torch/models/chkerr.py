@@ -12,8 +12,11 @@ merge-JOIN kernel), the run-end markers and their compaction (the
 hand-written compaction kernel) run on the table's device, and only the
 markers come back; the host maps marker lanes to sequence positions and
 merges runs that span a chunk boundary (`_ChkerrFold`, carried over
-unchanged).  Not ported here: the mesh path (`_main_chkerr_mesh`) and
-the psort branch (ROADMAP.md Queue 1).
+unchanged).  With the psort engine (YAK_TPU_PSORT=1,
+`countstep.psort_enabled`, read per run) the query sort and the marker
+step run through the sort kernel: the markers are sorted by lane, in
+place of the compaction (the JAX package's psort branch).  Not ported
+here: the mesh path (`_main_chkerr_mesh`, ROADMAP.md Queue 1).
 """
 
 import sys
@@ -51,14 +54,17 @@ def main_chkerr(opt, table, seq_fn, out=None):
     chunk = -(-chunk // 1024) * 1024
     M = chunk - k + 1
     fold = _ChkerrFold(opt, k, out)
+    psort = countstep.psort_enabled()
+    mark = countstep.run_marker_sort if psort else countstep.run_mark_compact
 
     def dispatch(packed):
         carg = pack_chunk_planes(packed, dev)
         vals, valid = countstep.lookup_chunk(carg, k, table.keys,
-                                             table.cnt, table.size)
+                                             table.cnt, table.size,
+                                             psort=psort)
         khi, runlen, n = countstep.chkerr_mark_mid(vals, valid,
                                                    int(opt.min_cnt), M)
-        lanes, lens = countstep.run_mark_compact(khi, runlen)
+        lanes, lens = mark(khi, runlen)
         maxr = countstep.CHKERR_MAX_RUNS
         return (lanes, lens) + _to_host_async((n, lanes[:maxr], lens[:maxr]))
 

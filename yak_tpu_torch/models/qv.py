@@ -9,9 +9,15 @@ no value comes back to the host until the end.  The per-sequence
 gating of chunk-spanning sequences, the SQ/EK text and the float64
 model fit stay on the host (numpy, carried over unchanged).
 
+With the psort engine (YAK_TPU_PSORT=1, `countstep.psort_enabled`, read
+per run) the query sort and, without -E, the post's region-key sort run
+through the sort kernel (`run_join_lookup`'s and
+`run_qv_join_post_psort`'s sorts); with -E the default post stays, as
+in the JAX package.
+
 Not ported here: the mesh path (`_run_qv_fused_mesh`), the seg-payload
-variant, the psort post and the per-position scan path (`_run_qv_scan`,
-models/scan.py): ROADMAP.md Queue 1.
+variant and the per-position scan path (`_run_qv_scan`, models/scan.py):
+ROADMAP.md Queue 1.
 """
 
 import math
@@ -130,6 +136,7 @@ def run_qv(opt, fn, table, out=None):
     blocks = []                # per-seq output text, input order
     carry_ek = [""]            # EK rows of the chunk-spanning seq
     want_ek = bool(opt.print_err_kmer)
+    psort = countstep.psort_enabled()
     prog = Progress("run_qv")
 
     for packed in ChunkSource(fn, chunk, k, with_meta="records"):
@@ -144,9 +151,11 @@ def run_qv(opt, fn, table, out=None):
         meta_d = torch.from_numpy(meta).to(dev)
         carg = pack_chunk_planes(packed, dev)
         vals, valid = countstep.lookup_chunk(carg, k, table.keys,
-                                             table.cnt, table.size)
+                                             table.cnt, table.size,
+                                             psort=psort)
         outs = countstep.qv_join_post(vals, valid, meta_d, state, ns, M,
-                                      float(opt.min_frac), want_ek)
+                                      float(opt.min_frac), want_ek,
+                                      psort=psort and not want_ek)
         state = outs[:4]
 
         ek_txt = None

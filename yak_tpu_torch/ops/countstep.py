@@ -16,6 +16,15 @@ INT64_MAX for invalid lanes, k >= 32 hashes wide-encoded
 (`ops/keys.encode_wide`): the TPU prep's complement trick, stream bit
 and u32 planes exist for the TPU kernel only.
 
+The psort engine (`psort_enabled`, opt-in as in the JAX package) runs
+the batch sorts through the hand-written sort kernel (`ops/sort.py`)
+instead: the count fold's batch sort (`get_count_presort_step`, the
+psort branch of `yak_tpu/table.py::_run_step`, where the gated fold
+takes the plain gate post), the lookups' query sort
+(`plookup_presort`, `_join_psort_dispatch`), the qv post's region-key
+sort (`get_qv_post_psort_mid`) and chkerr's marker sort in place of the
+compaction (`get_chkerr_psort_mid`, `run_marker_psort`).
+
 The gate posts run on the sorted batch, where equal keys are adjacent:
 each key run is probed once at its last lane, which carries the run's
 add weight (the run length, less one where the key's probed bits were
@@ -35,15 +44,34 @@ package and plain torch here; the compaction is the hand-written kernel
 (`ops/compact.py`).  No step reads a value back to the host.
 """
 
+import os
+
 import torch
 
 from yak_tpu_torch import YAK_MAX_COUNT
-from yak_tpu_torch.ops import bloom, compact, merge
+from yak_tpu_torch.ops import bloom, compact, merge, sort
 from yak_tpu_torch.ops.keys import (INT64_MAX, decode_wide, encode_wide,
                                     i32_bits)
 from yak_tpu_torch.ops.kmers import extract_from_planes, extract_periodic
 
 MARK_DROP = -(1 << 31)       # khi of a lane the compaction drops (bit 31)
+INT32_MAX = (1 << 31) - 1
+
+
+def psort_enabled(gated=False, wide=False):
+    """Whether a fold (or a qv/chkerr run) takes the psort engine
+    (countstep.psort_enabled, table._pallas_mode): YAK_TPU_PSORT=1 or
+    YAK_TPU_ENGINE=psort, read at each call; YAK_TPU_PSORT_BLOOM=0
+    sends a gated fold and YAK_TPU_PSORT_WIDE=0 a k >= 32 fold back to
+    the default engine.  The JAX package's interpret hook and Mosaic
+    self-test have no counterpart."""
+    env = os.environ
+    if gated and env.get("YAK_TPU_PSORT_BLOOM", "1") == "0":
+        return False
+    if wide and env.get("YAK_TPU_PSORT_WIDE", "1") == "0":
+        return False
+    return (env.get("YAK_TPU_PSORT", "0") == "1"
+            or env.get("YAK_TPU_ENGINE") == "psort")
 
 
 def extract(carg, k):
@@ -59,20 +87,26 @@ def extract(carg, k):
     return extract_from_planes(plo, phi, pnn, k, L)
 
 
-def sort_batch(h, valid, wide=False):
+def sort_batch(h, valid, wide=False, psort=False):
     """Flatten and sort a hash batch ascending; invalid lanes become
     INT64_MAX and sort to the tail.  wide: the hashes are raw k >= 32
-    hashes, wide-encoded before the sort."""
+    hashes, wide-encoded before the sort.  psort: through the sort
+    kernel, else torch.sort."""
     keys = torch.where(valid, encode_wide(h) if wide else h, INT64_MAX)
+    if psort:
+        return sort.sort(keys.reshape(-1))[0]
     return torch.sort(keys.reshape(-1)).values
 
 
-def count_step(carg, k, tkeys, tcnt, size, create, gate=None, hook=None):
+def count_step(carg, k, tkeys, tcnt, size, create, gate=None, hook=None,
+               psort=False):
     """One fold: extract + sort [+ Bloom gate post] + merge-reduce +
     finalize.  k >= 32 folds wide-encoded keys.
 
     gate: None, or (bf, pre, bf_shift, bf_n_hash) to run the gated create
-    pass (htab.c:61-70) against the filter bf.
+    pass (htab.c:61-70) against the filter bf.  psort: the psort engine's
+    fold, whose batch sort is the sort kernel and whose gated fold takes
+    the plain gate post (yak_tpu/table.py:414-420).
 
     Returns (keys, cnt, size, n_new, overflow, bf', undo): the new table
     truncated to cap, its live size min(new_size, cap), the created-key
@@ -84,11 +118,12 @@ def count_step(carg, k, tkeys, tcnt, size, create, gate=None, hook=None):
     wide = k > 31
     h, valid = extract(carg, k)
     mark("extract")
-    bkeys = sort_batch(h, valid, wide)
+    bkeys = sort_batch(h, valid, wide, psort)
     mark("sort")
     weights = bf = undo = None
     if gate is not None:
-        weights, bf, undo = run_bloom_gate_post(bkeys, *gate, wide=wide)
+        post = bloom_gate_post if psort else run_bloom_gate_post
+        weights, bf, undo = post(bkeys, *gate, wide=wide)
         mark("gate")
     okeys, ocnt, new_size, n_new = merge.merge_reduce(
         tkeys, tcnt, size, bkeys, create, weights=weights, wide=wide)
@@ -206,20 +241,27 @@ def check_lookup_k(k, command):
             f"not yet ported: ROADMAP.md Queue 1, 'wide JOIN'")
 
 
-def lookup_chunk(carg, k, tkeys, tcnt, size, hook=None):
+def lookup_chunk(carg, k, tkeys, tcnt, size, hook=None, psort=False):
     """Per-window table lookup of one chunk: extract, sort the queries
-    with their lane index as payload, merge-JOIN against the table.
-    Returns (vals int32 [M], valid bool [M]) in lane order: the count of
-    each valid window's k-mer, -1 where absent; invalid lanes -1.
-    `hook`, when given, is called with each phase's name as the phase
-    is queued."""
+    with their lane index as payload (psort: through the sort kernel),
+    merge-JOIN against the table.  Returns (vals int32 [M], valid bool
+    [M]) in lane order: the count of each valid window's k-mer, -1 where
+    absent; invalid lanes -1.  `hook`, when given, is called with each
+    phase's name as the phase is queued."""
     mark = hook or (lambda _name: None)
     h, valid = extract(carg, k)
     h, valid = h.reshape(-1), valid.reshape(-1)
     mark("extract")
-    qkeys, order = torch.sort(torch.where(valid, h, INT64_MAX))
+    keys = torch.where(valid, h, INT64_MAX)
+    if psort:
+        lane = torch.arange(keys.numel(), dtype=torch.int32,
+                            device=keys.device)
+        qkeys, order = sort.sort(keys, lane)
+    else:
+        qkeys, order = torch.sort(keys)
+        order = order.to(torch.int32)
     mark("sort")
-    vals = merge.merge_join(tkeys, tcnt, size, qkeys, order.to(torch.int32))
+    vals = merge.merge_join(tkeys, tcnt, size, qkeys, order)
     mark("join")
     return vals, valid
 
@@ -230,11 +272,12 @@ def _cumsum0(mask):
     return torch.cat([z, torch.cumsum(mask, 0, dtype=torch.int32)])
 
 
-def qv_chunk_stats(vals, has, meta, ns, M, min_frac):
+def qv_chunk_stats(vals, has, meta, ns, M, min_frac, psort=False):
     """Per-segment sums and the three region histograms of one chunk
-    (countstep._qv_chunk_stats).  meta i32 [2*ns+6]: bounds[ns+1],
-    elig[ns], head_end, inc_start, j_inc, head_elig, cont.  Returns
-    (hg, hi_, hh int64 [1024], tot, non0 int32 [ns])."""
+    (countstep._qv_chunk_stats; psort: get_qv_post_psort_mid and _fin,
+    the region-key sort through the sort kernel).  meta i32 [2*ns+6]:
+    bounds[ns+1], elig[ns], head_end, inc_start, j_inc, head_elig, cont.
+    Returns (hg, hi_, hh int64 [1024], tot, non0 int32 [ns])."""
     dev = vals.device
     bounds = meta[:ns + 1]
     elig = meta[ns + 1:2 * ns + 1] != 0
@@ -265,7 +308,7 @@ def qv_chunk_stats(vals, has, meta, ns, M, min_frac):
                       torch.where(lane < head_end, 3072 + t,
                                   torch.where(lane >= inc_start, 2048 + t,
                                               torch.where(gl, t, 1500))))
-    sk = torch.sort(key).values
+    sk = sort.sort(key)[0] if psort else torch.sort(key).values
     probes = torch.cat([torch.arange(1025, dtype=torch.int32, device=dev),
                         torch.arange(2048, 4097, dtype=torch.int32,
                                      device=dev)])
@@ -321,12 +364,15 @@ def qv_ek_markers(vals, has, M):
     return key[:QV_MAX_EK], em.sum(dtype=torch.int32)
 
 
-def qv_join_post(vals, valid, meta, state, ns, M, min_frac, emit_ek):
+def qv_join_post(vals, valid, meta, state, ns, M, min_frac, emit_ek,
+                 psort=False):
     """The qv post of one chunk (countstep.get_qv_join_post without its
-    order restore): the reduction and the fold.  Returns (cnt, c_tot,
-    c_non0, c_hist, tot, non0) and, with emit_ek, (markers, n) after."""
+    order restore; psort: run_qv_join_post_psort, which the JAX package
+    takes only without -E): the reduction and the fold.  Returns (cnt,
+    c_tot, c_non0, c_hist, tot, non0) and, with emit_ek, (markers, n)
+    after."""
     hg, hi_, hh, tot, non0 = qv_chunk_stats(vals, valid, meta, ns, M,
-                                            min_frac)
+                                            min_frac, psort)
     r = qv_fold_step(state, meta, hg, hi_, hh, tot, non0, ns,
                      min_frac) + (tot, non0)
     if emit_ek:
@@ -360,3 +406,12 @@ def run_mark_compact(khi, pay):
     compaction's middle plane, which nothing reads."""
     ohi, _olo, opay, _n = compact.compact(khi, khi, pay)
     return ohi, opay
+
+
+def run_marker_sort(khi, pay):
+    """The psort engine's marker step (countstep.get_chkerr_psort_mid's
+    planes through run_marker_psort), in place of run_mark_compact: key =
+    the run-end lane where khi keeps one, else INT32_MAX, payload = the
+    run length, one sort through the kernel.  Returns (lanes, payloads)
+    int32 [M], the markers first in lane order, as run_mark_compact."""
+    return sort.sort(torch.where(khi >= 0, khi, INT32_MAX), pay)

@@ -23,6 +23,11 @@ the update built a new one (up to -b30), or the old values of the words
 an in-place update touched (larger filters: a copy of a -b37 filter
 would take 16 GiB).
 
+Each fold takes the default engine (`torch.sort` batch sort) or, opted
+in with YAK_TPU_PSORT=1 (`ops/countstep.psort_enabled`, read at each
+fold), the psort engine (the batch sort through the sort kernel); the
+one-fold-late replay re-runs a fold on the engine it took.
+
 The lookup workloads (qv, chkerr) read `keys`, `cnt` and `size` after
 `flush` and JOIN their queries against them (`ops/countstep.lookup_chunk`).
 
@@ -86,7 +91,8 @@ class KmerTable:
         self._pend_codes = []  # deferred host code chunks (count path)
         self._pend_create = True
         # one-step-late overflow bookkeeping: (pre-fold state, fold
-        # input, device overflow flag, the filter's undo record or None)
+        # input, device overflow flag, the filter's undo record or None,
+        # the fold's engine)
         self._last_step = None
         self._group_g = None   # fixed chunks-per-group
         self.phase_hook = None
@@ -199,21 +205,24 @@ class KmerTable:
                 self.keys, self.cnt, self.size, need)
         prev = (self.keys, self.cnt, self.size)
         gated = self.bf is not None and self._pend_create
-        ovf, undo = self._run_step(carg, prev, gated)
-        self._last_step = (prev, carg, ovf, undo)
+        # the engine is read at each fold (table._pallas_mode)
+        psort = countstep.psort_enabled(gated, self.wide)
+        ovf, undo = self._run_step(carg, prev, gated, psort)
+        self._last_step = (prev, carg, ovf, undo, psort)
 
-    def _run_step(self, carg, state, gated):
+    def _run_step(self, carg, state, gated, psort):
         """Queue one fold against `state` (keys, cnt, size), through the
-        Bloom gate when `gated`; leaves the result in self.* (and the
-        filter in self.bf); returns the device overflow flag and the
-        filter's undo record (None when ungated)."""
+        Bloom gate when `gated`, on the psort engine when `psort`; leaves
+        the result in self.* (and the filter in self.bf); returns the
+        device overflow flag and the filter's undo record (None when
+        ungated)."""
         keys, cnt, size = state
         gate = ((self.bf, self.pre, self.bf_shift, self.bf_n_hash)
                 if gated else None)
         (self.keys, self.cnt, self.size, _n_new, ovf, bf,
          undo) = countstep.count_step(carg, self.k, keys, cnt, size,
                                       self._pend_create, gate=gate,
-                                      hook=self.phase_hook)
+                                      hook=self.phase_hook, psort=psort)
         if gated:
             self.bf = bf
         return ovf, undo
@@ -221,11 +230,11 @@ class KmerTable:
     def _check_last_step(self):
         """Settle the previous fold: on overflow, double the preserved
         pre-fold table, take the filter back to its pre-fold state, and
-        replay the fold (the step never writes into its table inputs, so
-        that state is intact)."""
+        replay the fold on its own engine (the step never writes into
+        its table inputs, so that state is intact)."""
         if self._last_step is None:
             return
-        prev, carg, ovf, undo = self._last_step
+        prev, carg, ovf, undo, psort = self._last_step
         self._last_step = None
         while bool(ovf):
             keys, cnt, size = prev
@@ -235,7 +244,7 @@ class KmerTable:
             gated = undo is not None
             if gated:
                 self.bf = bloom.rollback(self.bf, undo)
-            ovf, undo = self._run_step(carg, prev, gated)
+            ovf, undo = self._run_step(carg, prev, gated, psort)
 
     def insert_hashes(self, h, valid, create_new=True):
         """Count a raw (duplicate-bearing) int64 hash batch into the table
