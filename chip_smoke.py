@@ -84,13 +84,16 @@ Phases, in order; any failure exits non-zero:
  14. the CLI's count -b24 (two files) and count -k33 in this process on
      the card and on the CPU must dump byte-identical .yak files; phases
      1-14 must not have launched the sort kernel;
- 15. the sort kernel (csrc/sort.cu, the psort engine's batch sort) vs its
-     plain torch version on the card, bit for bit: every case of
-     tests/torch_sort_cases.py, and every sort call of a warm-up run of
-     phase 16's workloads (captured as the psort engine passes them, so
-     at its exact shapes); each instantiation (int64 or int32 keys, with
-     or without an int32 payload) timed at its largest captured call,
-     beside torch.sort on the same keys (the default engine's call);
+ 15. the sort kernel (csrc/sort.cu, the psort engine's batch sort, a
+     radix sort) vs its plain torch version on the card, bit for bit:
+     every case of tests/torch_sort_cases.py, and every sort call of a
+     warm-up run of phase 16's workloads (captured as the psort engine
+     passes them, so at its exact shapes); the input planes must be
+     unchanged after each call, and the number of passes the kernel's
+     plan ran must equal the plain plan's (ops/sort.plan_plain); each
+     instantiation (int64 or int32 keys, with or without an int32
+     payload) timed at its largest captured call, beside torch.sort on
+     the same keys (the default engine's call), with its pass count;
  16. the psort engine at real size, with YAK_TPU_PSORT=1 set in this
      process and unset after: phase 4's count (6,226,713 /
      669014fae5d3), phase 11's k=33 count (6,412,500 / a56a84001d46),
@@ -110,7 +113,8 @@ counts set to 0 just before it and read just after, and by path under
 call must move over the H100's 3.35 TB/s; `library_ms` one PyTorch call
 computing the same function, where there is one; the sort's entries,
 one per instantiation, name the other four TPU kernels it replaces
-under `replaces_also`) and the contract line
+under `replaces_also` and give the radix passes of the timed call
+under `passes`) and the contract line
 {"ok": true, "device": {...}}.  Imports no JAX.
 """
 
@@ -1403,17 +1407,29 @@ def psort_workloads(dev, card, chunks, files, paths, ch_texts, timed):
 
 
 def check_sort(args, label):
-    """Sort kernel vs plain on one (keys, payload): bit-equal, else
-    raises; returns the max abs difference, 0."""
+    """Sort kernel vs plain on one (keys, payload): bit-equal, the input
+    planes unchanged, and the kernel's pass count equal to the plain
+    plan's (ops/sort.plan_plain), else raises; returns the pass count."""
     from yak_tpu_torch.ops import sort
 
+    keys, pay = args
+    before = [a.clone() for a in args if a is not None]
     got = sort.sort(*args)
     want = sort.sort_plain(*args)
     torch.cuda.synchronize()
     if not (torch.equal(got[0], want[0])
-            and (args[1] is None or torch.equal(got[1], want[1]))):
+            and (pay is None or torch.equal(got[1], want[1]))):
         raise AssertionError(f"{label}: sort kernel != plain")
-    return 0
+    if not all(torch.equal(a, b) for a, b in
+               zip(before, (a for a in args if a is not None))):
+        raise AssertionError(f"{label}: the sort kernel wrote its input")
+    if keys.numel() == 0:
+        return 0
+    passes, plain = int(sort.sort.passes), len(sort.plan_plain(*args))
+    if passes != plain:
+        raise AssertionError(f"{label}: the kernel ran {passes} passes, the "
+                             f"plain plan {plain}")
+    return passes
 
 
 def sort_kernel_checks(dev, card, chunks, files, paths, ch_texts):
@@ -1428,22 +1444,25 @@ def sort_kernel_checks(dev, card, chunks, files, paths, ch_texts):
         check_sort((torch.from_numpy(keys).to(dev),
                     None if pay is None else torch.from_numpy(pay).to(dev)),
                    name)
-    log(f"  {len(CASES)} cases equal")
+    log(f"  {len(CASES)} cases equal, inputs unchanged, pass counts as "
+        f"planned")
     with captured("sort", "sort") as calls:
         psort_workloads(dev, card, chunks, files, paths, ch_texts,
                         timed=False)
     calls = [(a[0], a[1] if len(a) > 1 else None) for a, _kw in calls]
-    for i, args in enumerate(calls):
-        check_sort(args, f"captured sort {i}")
+    passes = [check_sort(args, f"captured sort {i}")
+              for i, args in enumerate(calls)]
     log(f"  kernel == plain on all {len(calls)} sort calls captured from a "
-        f"warm-up run of phase 16's workloads")
+        f"warm-up run of phase 16's workloads, inputs unchanged, pass "
+        f"counts as planned")
 
     out = {}
     for inst in SORT_INSTANCES:
-        mine = [a for a in calls if sort.instance(*a) == inst]
+        mine = [i for i, a in enumerate(calls) if sort.instance(*a) == inst]
         if not mine:
             raise AssertionError(f"the psort engine made no sort_{inst} call")
-        keys, pay = max(mine, key=lambda a: a[0].numel())
+        i = max(mine, key=lambda i: calls[i][0].numel())
+        keys, pay = calls[i]
         n = keys.numel()
         # each input lane read once and each output lane written once
         lane_bytes = keys.element_size() + (0 if pay is None else 4)
@@ -1451,8 +1470,10 @@ def sort_kernel_checks(dev, card, chunks, files, paths, ch_texts):
             sort.sort, sort.sort_plain, (keys, pay),
             2 * n * lane_bytes / HBM_BYTES_PER_S * 1e3,
             lambda keys=keys: torch.sort(keys),
-            f"sort_{inst} (n {n}, the largest of {len(mine)} calls; "
-            f"library: torch.sort of the keys)", card)
+            f"sort_{inst} (n {n}, {passes[i]} passes, the plain plan's "
+            f"{len(sort.plan_plain(keys, pay))}; the largest of {len(mine)} "
+            f"calls; library: torch.sort of the keys)", card)
+        out[f"sort_{inst}"]["passes"] = passes[i]
     return out
 
 

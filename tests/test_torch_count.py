@@ -23,6 +23,7 @@ from yak_tpu_torch import cli
 from yak_tpu_torch.io.chunks import ChunkSource
 from yak_tpu_torch.io.pack import detect_periodic_meta
 from yak_tpu_torch.models import count as pcount
+from yak_tpu_torch.ops import countstep as pcs
 from yak_tpu_torch.table import KmerTable
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -169,6 +170,20 @@ def test_unported_options_raise(inputs, tmp_path):
     assert not out.exists()
 
 
+def test_exact_dump_env_refused(inputs, tmp_path, monkeypatch):
+    """YAK_TPU_EXACT_DUMP set to anything means -X to the JAX package's
+    CLI (yak_tpu/cli.py:99,133), so the port refuses it as it refuses
+    -X: exit code 1, and no dump of other bytes."""
+    monkeypatch.setenv("YAK_TPU_EXACT_DUMP", "1")
+    out = tmp_path / "x.yak"
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        ret = cli.main(["count", "-k31", f"-K{CHUNK}", "--device", "cpu",
+                        "-o", str(out), inputs["fastq"]])
+    assert ret == 1 and "not yet ported" in err.getvalue()
+    assert not out.exists()
+
+
 @pytest.fixture(scope="module")
 def bloom_inputs(tmp_path_factory):
     """Two read sets of one genome (different reads, so the gate of
@@ -243,3 +258,39 @@ def test_cli_bloom_and_wide_match_jax(bloom_inputs, tmp_path, args):
         chunk_size=CHUNK))
     jt.dump(str(tmp_path / "jax.yak"))
     assert open(out, "rb").read() == (tmp_path / "jax.yak").read_bytes()
+
+
+def test_bloom_two_pass_env_runs_literal(bloom_inputs, tmp_path,
+                                         monkeypatch):
+    """YAK_TPU_BLOOM_TWO_PASS set: one path given twice at -b20 runs the
+    literal protocol (yak_tpu/models/count.py:113-114): a gated pass
+    that creates, then a pass that increments, with the gate post in
+    the first; the dump is the shortcut's bytes and `yak_tpu`'s under
+    the same variable."""
+    files = [bloom_inputs["a"]] * 2
+    opts = pcount.CountOpts(k=31, bf_shift=20, chunk_size=CHUNK,
+                            device="cpu")
+    pcount.count(files, opts).dump(str(tmp_path / "short.yak"))
+    monkeypatch.setenv("YAK_TPU_BLOOM_TWO_PASS", "1")
+    creates, posts = [], []
+    real_file, real_post = pcount.count_file, pcs.run_bloom_gate_post
+
+    def file_spy(fn, opt, table=None):
+        creates.append(table is None)
+        return real_file(fn, opt, table)
+
+    def post_spy(*args, **kw):
+        posts.append(len(creates))
+        return real_post(*args, **kw)
+
+    monkeypatch.setattr(pcount, "count_file", file_spy)
+    monkeypatch.setattr(pcs, "run_bloom_gate_post", post_spy)
+    pcount.count(files, opts).dump(str(tmp_path / "literal.yak"))
+    assert creates == [True, False]
+    assert posts and set(posts) == {1}       # gated folds in pass 1 only
+    jcount.count(files, jcount.CountOpts(k=31, bf_shift=20,
+                                         chunk_size=CHUNK)).dump(
+        str(tmp_path / "jax.yak"))
+    got = (tmp_path / "literal.yak").read_bytes()
+    assert got == (tmp_path / "short.yak").read_bytes()
+    assert got == (tmp_path / "jax.yak").read_bytes()

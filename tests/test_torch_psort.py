@@ -99,6 +99,7 @@ def lookup_inputs(tmp_path_factory):
 
 
 @pytest.mark.parametrize("setting,gated,wide,on", [
+    # count folds (yak_tpu/table.py::_pallas_mode)
     ({}, False, False, False),
     ({"YAK_TPU_PSORT": "1"}, False, False, True),
     ({"YAK_TPU_ENGINE": "psort"}, False, False, True),
@@ -108,11 +109,37 @@ def lookup_inputs(tmp_path_factory):
     ({"YAK_TPU_PSORT": "1", "YAK_TPU_PSORT_BLOOM": "0"}, False, True, True),
     ({"YAK_TPU_PSORT": "1", "YAK_TPU_PSORT_WIDE": "0"}, False, True, False),
     ({"YAK_TPU_PSORT": "1", "YAK_TPU_PSORT_WIDE": "0"}, True, False, True),
+    # YAK_TPU_ENGINE forces k <= 31 folds only, gated ones regardless of
+    # YAK_TPU_PSORT_BLOOM; pmerge and compact override YAK_TPU_PSORT=1
+    ({"YAK_TPU_ENGINE": "psort", "YAK_TPU_PSORT_BLOOM": "0"}, True, False,
+     True),
+    ({"YAK_TPU_ENGINE": "psort"}, False, True, False),
+    ({"YAK_TPU_ENGINE": "psort"}, True, True, False),
+    ({"YAK_TPU_PSORT": "1", "YAK_TPU_ENGINE": "pmerge"}, False, False, False),
+    ({"YAK_TPU_PSORT": "1", "YAK_TPU_ENGINE": "compact"}, True, False, False),
+    ({"YAK_TPU_PSORT": "1", "YAK_TPU_ENGINE": "pmerge"}, False, True, True),
+    # xla keeps every fold off the psort engine
+    ({"YAK_TPU_PSORT": "1", "YAK_TPU_ENGINE": "xla"}, False, False, False),
+    ({"YAK_TPU_PSORT": "1", "YAK_TPU_ENGINE": "xla"}, False, True, False),
+    # a gated k >= 32 fold keeps the psort engine under PSORT_BLOOM=0
+    ({"YAK_TPU_PSORT": "1", "YAK_TPU_PSORT_BLOOM": "0"}, True, True, True),
+    # qv and chkerr runs (gated None): YAK_TPU_PSORT alone
+    # (yak_tpu/ops/countstep.py::psort_enabled)
+    ({}, None, None, False),
+    ({"YAK_TPU_PSORT": "1"}, None, None, True),
+    ({"YAK_TPU_ENGINE": "psort"}, None, None, False),
+    ({"YAK_TPU_PSORT": "1", "YAK_TPU_ENGINE": "pmerge"}, None, None, True),
+    ({"YAK_TPU_PSORT": "1", "YAK_TPU_ENGINE": "xla"}, None, None, True),
+    ({"YAK_TPU_PSORT": "1", "YAK_TPU_PSORT_BLOOM": "0",
+      "YAK_TPU_PSORT_WIDE": "0"}, None, None, True),
 ])
 def test_psort_enabled(env, setting, gated, wide, on):
+    """The engine choice of yak_tpu's table._pallas_mode (count folds)
+    and countstep.psort_enabled (qv and chkerr runs, gated None)."""
     for name, value in setting.items():
         env.setenv(name, value)
-    assert pcs.psort_enabled(gated, wide) is on
+    assert pcs.psort_enabled(fold=gated is not None, gated=bool(gated),
+                             wide=bool(wide)) is on
 
 
 def test_count_replay_matches_jax_psort(env, sort_spy):
@@ -303,6 +330,20 @@ def test_sub_gates_send_folds_back(env, sort_spy, read_sets):
     assert set(sort_spy["sort"]) == {"i64"}
     assert {"sort_batch", "bloom_gate_sentinel_post"} <= \
         set(sort_spy["torch"])
+
+
+def test_engine_var_takes_k31_folds_only(env, sort_spy, read_sets,
+                                         lookup_inputs):
+    """YAK_TPU_ENGINE=psort: the k <= 31 folds (the gated ones too) sort
+    through the kernel; the k >= 32 folds, qv and chkerr do not, as in
+    the JAX package."""
+    env.setenv("YAK_TPU_ENGINE", "psort")
+    env.setenv("YAK_TPU_PSORT_BLOOM", "0")
+    _port_runs(read_sets, lookup_inputs)
+    # -b20 over two files of 700 reads at chunk 16384: one gated fold in
+    # pass 1, one fold in pass 2
+    assert sort_spy["sort"] == ["i64", "i64"]
+    assert {"lookup_chunk", "qv_chunk_stats"} <= set(sort_spy["torch"])
 
 
 def test_default_engine_never_calls_sort(env, sort_spy, read_sets,

@@ -3,8 +3,12 @@ CPU) against the JAX package's Pallas bitonic sort (pallas_sort.
 sort_planes and sort_planes32 in interpret mode, with windows smaller
 than the batch so that the cross-window exchange passes run, as
 tests/test_pallas_sort.py runs them) and against numpy's lexsort on
-ragged lengths, duplicates and the extremes of the key types.  Every
-value is an integer: all comparisons are exact.
+ragged lengths, duplicates and the extremes of the key types.  The
+radix kernel's plan (ops/sort.plan_plain: which digit passes run, in
+which order) is checked on the CPU by its pass counts on the radix cases
+and by running it as a numpy model of the kernel's stable digit passes
+against lexsort on every case.  Every value is an integer: all
+comparisons are exact.
 
 The port sorts signed int64/int32 keys; the JAX package sorts u64 keys
 as hi/lo u32 planes and u32 keys.  `^ (1 << 63)` (`^ (1 << 31)`) maps
@@ -18,7 +22,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_sort_cases import CASES, expected
+from torch_sort_cases import CASES, RADIX_PASSES, expected
 from yak_tpu.ops import pallas_sort
 from yak_tpu_torch.ops import sort
 
@@ -111,6 +115,41 @@ def test_plain_matches_lexsort(name):
     np.testing.assert_array_equal(k.numpy(), keys)
 
 
+@pytest.mark.parametrize("name", list(RADIX_PASSES))
+def test_plan_counts_passes(name):
+    """The plan skips the constant digits, and the payload's digits when
+    the payload is nondecreasing: the pass counts of the radix cases,
+    known by construction."""
+    keys, payload = CASES[name]()
+    assert len(sort.plan_plain(*_port(keys, payload))) == RADIX_PASSES[name]
+
+
+def _radix_model(keys, payload):
+    """The kernel's passes in numpy: one stable sort of the lanes by each
+    digit of the plan, in the plan's order, the top byte's sign bit
+    flipped."""
+    order = np.arange(len(keys))
+    for plane, b in sort.plan_plain(*_port(keys, payload)):
+        x = (payload if plane == "payload" else keys)[order].astype(np.int64)
+        d = (x >> (8 * b)) & 0xFF
+        if b == (payload if plane == "payload" else keys).itemsize - 1:
+            d ^= 0x80
+        order = order[np.argsort(d, kind="stable")]
+    return keys[order], None if payload is None else payload[order]
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_radix_plan_matches_lexsort(name):
+    """The plan's digit passes, run as stable passes over the lanes, give
+    the contract's (key, payload) order on every case."""
+    keys, payload = CASES[name]()
+    got_k, got_p = _radix_model(keys, payload)
+    want_k, want_p = expected(keys, payload)
+    np.testing.assert_array_equal(got_k, want_k)
+    if payload is not None:
+        np.testing.assert_array_equal(got_p, want_p)
+
+
 def test_instances_name_the_kernel():
     a64 = torch.zeros(4, dtype=torch.int64)
     a32 = torch.zeros(4, dtype=torch.int32)
@@ -140,8 +179,9 @@ def test_sort_rejects_bad_inputs():
 
 def test_kernel_matches_plain_on_card(cuda_device):
     """On a CUDA card: the hand-written sort equals the plain version bit
-    for bit on every case, and each call of n >= 1 lanes counts one
-    launch of its instantiation."""
+    for bit on every case, leaves its input as it was, runs the passes
+    of the plain plan, and each call of n >= 1 lanes counts one launch
+    of its instantiation."""
     for name, build in CASES.items():
         keys, payload = build()
         k, p = _port(keys, payload, cuda_device)
@@ -154,3 +194,7 @@ def test_kernel_matches_plain_on_card(cuda_device):
         assert torch.equal(got[0], want[0]), name
         if p is not None:
             assert torch.equal(got[1], want[1]), name
+            np.testing.assert_array_equal(p.cpu().numpy(), payload)
+        np.testing.assert_array_equal(k.cpu().numpy(), keys)
+        if len(keys):
+            assert int(sort.sort.passes) == len(sort.plan_plain(k, p)), name

@@ -1,7 +1,8 @@
 """Command-line interface: `python -m yak_tpu_torch <command> [options]`.
 
 Port of `yak_tpu/cli.py` for `count` (with `-b`, `-H` and k in [1, 63];
-`-X` exits 1 with "not yet ported"), `qv`, `chkerr` and `version`, with
+`-X`, and YAK_TPU_EXACT_DUMP set to anything, which means `-X` there,
+exit 1 with "not yet ported"), `qv`, `chkerr` and `version`, with
 the same options, messages and footer.  Every other command of the
 reference CLI exits 1 with "not yet ported".
 
@@ -10,6 +11,7 @@ on the command line, else `cuda`.  When CUDA is asked for and absent,
 the CLI raises; it never falls back to the CPU on its own.
 """
 
+import os
 import resource
 import sys
 import time
@@ -122,7 +124,7 @@ def main_count(argv, device):
                        "  -X         byte-exact dump (reference khashl"
                        " slot order)",
                        "  --device D cuda, cuda:N or cpu [cuda]"])
-    if "X" in o:
+    if "X" in o or os.environ.get("YAK_TPU_EXACT_DUMP"):
         print("[E::main] count -X (the byte-exact dump) is not yet ported "
               "to yak_tpu_torch (see ROADMAP.md)", file=sys.stderr)
         return 1

@@ -95,7 +95,8 @@ def count(files, opt):
     counts; pass 2 over the second input (or the first again) increments
     existing keys; shrink to counts >= 2.
 
-    Same-file shortcut, as in the JAX package: when both passes read the
+    Same-file shortcut, as in the JAX package (YAK_TPU_BLOOM_TWO_PASS set
+    to anything forces the literal protocol): when both passes read the
     same path, the protocol's table is exactly {key: count | count >= 2}
     (a key's second sighting always passes the gate, pass 2 recounts
     every sighting of every admitted key, and the shrink drops the
@@ -104,7 +105,8 @@ def count(files, opt):
     literal protocol, whose table is the same."""
     _check_supported(opt)
     second = files[1] if len(files) >= 2 else files[0]
-    if opt.bf_shift > 0 and _same_stream(files[0], second):
+    if (opt.bf_shift > 0 and _same_stream(files[0], second)
+            and not os.environ.get("YAK_TPU_BLOOM_TWO_PASS")):
         table = count_file(files[0], replace(opt, bf_shift=0))
     else:
         table = count_file(files[0], opt)

@@ -58,20 +58,30 @@ MARK_DROP = -(1 << 31)       # khi of a lane the compaction drops (bit 31)
 INT32_MAX = (1 << 31) - 1
 
 
-def psort_enabled(gated=False, wide=False):
-    """Whether a fold (or a qv/chkerr run) takes the psort engine
-    (countstep.psort_enabled, table._pallas_mode): YAK_TPU_PSORT=1 or
-    YAK_TPU_ENGINE=psort, read at each call; YAK_TPU_PSORT_BLOOM=0
-    sends a gated fold and YAK_TPU_PSORT_WIDE=0 a k >= 32 fold back to
-    the default engine.  The JAX package's interpret hook and Mosaic
+def psort_enabled(fold=False, gated=False, wide=False):
+    """Whether a count fold (`fold`, gated or not, wide or not) or a qv or
+    chkerr run takes the psort engine, read at each call as the JAX
+    package reads it.  A qv or chkerr run: YAK_TPU_PSORT=1 alone
+    (countstep.psort_enabled).  A fold (table._pallas_mode):
+    YAK_TPU_ENGINE=xla keeps every fold off it; a k >= 32 fold takes it
+    under YAK_TPU_PSORT=1 unless YAK_TPU_PSORT_WIDE=0; a k <= 31 fold
+    takes the engine that YAK_TPU_ENGINE=psort|pmerge|compact names
+    (the port runs its default engine for the other two), else it takes
+    psort under YAK_TPU_PSORT=1, a gated one unless
+    YAK_TPU_PSORT_BLOOM=0.  The JAX package's interpret hook and Mosaic
     self-test have no counterpart."""
     env = os.environ
-    if gated and env.get("YAK_TPU_PSORT_BLOOM", "1") == "0":
+    on = env.get("YAK_TPU_PSORT", "0") == "1"
+    if not fold:
+        return on
+    engine = env.get("YAK_TPU_ENGINE", "auto")
+    if engine == "xla":
         return False
-    if wide and env.get("YAK_TPU_PSORT_WIDE", "1") == "0":
-        return False
-    return (env.get("YAK_TPU_PSORT", "0") == "1"
-            or env.get("YAK_TPU_ENGINE") == "psort")
+    if wide:
+        return on and env.get("YAK_TPU_PSORT_WIDE", "1") != "0"
+    if engine in ("psort", "pmerge", "compact"):
+        return engine == "psort"
+    return on and not (gated and env.get("YAK_TPU_PSORT_BLOOM", "1") == "0")
 
 
 def extract(carg, k):

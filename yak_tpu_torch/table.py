@@ -24,9 +24,10 @@ an in-place update touched (larger filters: a copy of a -b37 filter
 would take 16 GiB).
 
 Each fold takes the default engine (`torch.sort` batch sort) or, opted
-in with YAK_TPU_PSORT=1 (`ops/countstep.psort_enabled`, read at each
-fold), the psort engine (the batch sort through the sort kernel); the
-one-fold-late replay re-runs a fold on the engine it took.
+in with YAK_TPU_PSORT=1 or YAK_TPU_ENGINE=psort
+(`ops/countstep.psort_enabled`, read at each fold), the psort engine
+(the batch sort through the sort kernel); the one-fold-late replay
+re-runs a fold on the engine it took.
 
 The lookup workloads (qv, chkerr) read `keys`, `cnt` and `size` after
 `flush` and JOIN their queries against them (`ops/countstep.lookup_chunk`).
@@ -206,7 +207,8 @@ class KmerTable:
         prev = (self.keys, self.cnt, self.size)
         gated = self.bf is not None and self._pend_create
         # the engine is read at each fold (table._pallas_mode)
-        psort = countstep.psort_enabled(gated, self.wide)
+        psort = countstep.psort_enabled(fold=True, gated=gated,
+                                        wide=self.wide)
         ovf, undo = self._run_step(carg, prev, gated, psort)
         self._last_step = (prev, carg, ovf, undo, psort)
 
