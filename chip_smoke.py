@@ -12,8 +12,11 @@ Phases, in order; any failure exits non-zero:
      the merge-reduce and merge-JOIN entry points, csrc/compact.cu and
      csrc/sort.cu) with one nvcc each, side by side, into
      build/yak_tpu_torch/;
-  3. kernel vs its plain torch version on the card: the merge cases of
-     tests/torch_merge_cases.py, and the inputs of every fold of one
+  3. kernel vs its plain torch version on the card: the kernel's tile
+     must be the fixtures' CUDA_TILE (tests/torch_merge_cases.py and
+     tests/torch_join_cases.py), so that their runs sit on its edges;
+     the merge cases of tests/torch_merge_cases.py, and the inputs of
+     every fold of one
      count of the phase 4 workload (captured as the count path passes
      them to the wrapper, so at its exact shapes; this count is also
      phase 4's warm-up); keys, counts, size, n_new and the overflow flag
@@ -114,7 +117,9 @@ call must move over the H100's 3.35 TB/s; `library_ms` one PyTorch call
 computing the same function, where there is one; the sort's entries,
 one per instantiation, name the other four TPU kernels it replaces
 under `replaces_also` and give the radix passes of the timed call
-under `passes`) and the contract line
+under `passes`; the JOIN's gives under `identity_qidx_device_ms` its
+device time on the same call with qidx the identity, whose stores
+coalesce) and the contract line
 {"ok": true, "device": {...}}.  Imports no JAX.
 """
 
@@ -296,11 +301,18 @@ def fold_inputs(chunks, dev):
 
 def kernel_checks(dev, chunks):
     sys.path.insert(0, os.path.join(ROOT, "tests"))
-    from torch_merge_cases import CASES, expected, sorted_table
+    import torch_join_cases
+    from torch_merge_cases import CASES, CUDA_TILE, expected, sorted_table
     from yak_tpu_torch.ops import merge
     from yak_tpu_torch.ops.countstep import sort_batch
     from yak_tpu_torch.ops.keys import torch_to_u64, u64_to_torch
 
+    tile = merge._library().yak_merge_reduce_tile()
+    if not tile == CUDA_TILE == torch_join_cases.CUDA_TILE:
+        raise AssertionError(f"the kernel's tile is {tile} merged lanes, the "
+                             f"fixtures' CUDA_TILE {CUDA_TILE} / "
+                             f"{torch_join_cases.CUDA_TILE}")
+    log(f"  kernel tile {tile} merged lanes = the fixtures' CUDA_TILE")
     err = 0
     for name, (build, _pallas) in CASES.items():
         hs, cs, batch, valid, cap, create = build()
@@ -766,6 +778,13 @@ def lookup_kernel_checks(dev, table, paths, card):
         (12 * live + 16 * nq) / HBM_BYTES_PER_S * 1e3, None,
         f"JOIN (cap {args[0].numel()}, live {live}, B {nq})", card)}
     out["merge_join"]["max_abs_err"] = errs["merge_join"]
+    # the same JOIN with qidx the identity: its stores then coalesce, so
+    # the difference is what the scattered stores at qidx cost
+    iota = torch.arange(nq, dtype=torch.int32, device=dev)
+    ident = time_ms(lambda: merge.merge_join(*args[:4], iota), 20)
+    log(f"  JOIN with qidx the identity (coalesced stores): {ident[1]:.4f} "
+        f"ms device only [{card}]")
+    out["merge_join"]["identity_qidx_device_ms"] = ident[1]
     out["compact"] = time_compact(max(ch_compacts,
                                       key=lambda a: a[0].numel()),
                                   "compaction (chkerr)", card)

@@ -2,15 +2,17 @@
 and its sort-merge engine (ops/sorttable.merge_batch) against the JAX
 package's Pallas merge-reduce kernel in interpret mode and its XLA
 merge_batch, in count mode and in the weighted (Bloom-gated) and wide
-(k >= 32) modes.  Every value is an integer: all comparisons are
-exact."""
+(k >= 32) modes; and a numpy model of the CUDA kernel's tile
+decomposition (segmented aggregates, look-back carries, survivor
+offsets) against the numpy contract.  Every value is an integer: all
+comparisons are exact."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from torch_merge_cases import (CASES, MODE_CASES, SIGN, expected,
+from torch_merge_cases import (CASES, CUDA_TILE, MODE_CASES, SIGN, expected,
                                sorted_batch, sorted_table)
 from yak_tpu.ops import sorttable as jst
 from yak_tpu.ops.countstep import (_pmerge_prep_impl, _xs_packed_sorted,
@@ -235,3 +237,97 @@ def test_mode_merge_kernel_matches_plain_on_card(cuda_device):
         assert int(ns) == int(ps) and int(nn) == int(pn), name
         assert torch.equal(ok[:live], pk[:live]), name
         assert torch.equal(oc[:live], pc[:live]), name
+
+
+SAT = 1 << 30          # the kernel's run sums saturate here
+INT64_MAX = (1 << 63) - 1
+
+
+def _seg_combine(a, b):
+    """Segmented aggregates (f, s, p), a earlier: b's head fixes s, p."""
+    if b[0]:
+        return b
+    return a[0], min(a[1] + b[1], SAT), a[2] | b[2]
+
+
+def tile_model(tkeys, tcnt, size, bkeys, weights, create):
+    """The merge-reduce as csrc/merge_reduce.cu decomposes it, in numpy:
+    the merged stream (live table lanes first on equal keys, the batch's
+    INT64_MAX tail merged as ordinary lanes) cut into CUDA_TILE-lane
+    tiles; each tile's segmented aggregate from its own lanes; its carry
+    from earlier tiles' aggregates in look-back order (nearest first,
+    combined earlier (+) later, stopping at the first tile with a head);
+    its exact survivor count with the continued run's fate from the
+    carry; offsets, new_size and n_new from the counts.  A tile whose
+    first lane is invalid ends the stream.  Returns (keys, counts,
+    new_size, n_new) with keys and counts cut at the table's capacity."""
+    cap = len(tkeys)
+    keys = np.concatenate([tkeys[:size], bkeys])
+    vals = np.concatenate([tcnt[:size].astype(np.int64),
+                           np.ones(len(bkeys), np.int64) if weights is None
+                           else weights.astype(np.int64)])
+    tab = np.arange(len(keys)) < size
+    order = np.argsort(keys, kind="stable")   # table lanes come first
+    keys, vals, tab = keys[order], vals[order], tab[order]
+    n = len(keys)
+    valid = keys != INT64_MAX
+    head = valid & np.append(True, keys[1:] != keys[:-1])
+    end = valid & np.append(keys[1:] != keys[:-1], True)
+
+    aggs, out_k, out_c, new_size, n_new = [], [], [], 0, 0
+    for d0 in range(0, n, CUDA_TILE):
+        sl = slice(d0, min(d0 + CUDA_TILE, n))
+        if not valid[d0]:
+            assert not valid[d0:].any()
+            break
+        h, e, v, p, k = head[sl], end[sl], vals[sl], tab[sl], keys[sl]
+        seg = np.cumsum(h)            # 0: the run continued into the tile
+        s_seg = np.minimum(np.bincount(seg, weights=v * valid[sl]), SAT)
+        p_seg = np.bincount(seg, weights=p) > 0
+        last = seg[-1]
+        agg = (bool(h.any()), int(s_seg[last]), bool(p_seg[last]))
+        carry = (False, 0, False)
+        for j in range(len(aggs) - 1, -1, -1):
+            carry = _seg_combine(aggs[j], carry)
+            if aggs[j][0]:
+                break
+        aggs.append(agg)
+        count = made = 0
+        for i in np.nonzero(e)[0]:
+            run = (True, int(s_seg[seg[i]]), bool(p_seg[seg[i]]))
+            if seg[i] == 0:
+                run = _seg_combine(carry, (False,) + run[1:])
+            if weights is None:
+                keep = bool(create) or run[2]
+            else:
+                keep = (run[2] or run[1] > 0) if create else run[2]
+            if keep:
+                count += 1
+                made += not run[2]
+                out_k.append(k[i])
+                out_c.append(min(run[1], 1023))
+        new_size += count
+        n_new += made
+    return (np.array(out_k, np.int64)[:cap], np.array(out_c, np.int32)[:cap],
+            new_size, n_new)
+
+
+@pytest.mark.parametrize("name", list(CASES) + list(MODE_CASES))
+def test_tile_model_matches_contract(name):
+    """The kernel's tile decomposition, carries and offsets (numpy model)
+    == the numpy contract, on every count-mode and mode case."""
+    if name in CASES:
+        hs, cs, batch, valid, cap, create = CASES[name][0]()
+        w, wide = None, False
+    else:
+        hs, cs, batch, valid, w, cap, create, wide = MODE_CASES[name]()
+    tk, tc = sorted_table(hs, cs, cap, wide)
+    bkeys, bw = sorted_batch(batch, valid, w, wide)
+    got_k, got_c, got_size, got_new = tile_model(
+        tk.view(np.int64), tc, len(hs), bkeys, bw, create)
+    want_k, want_c, want_size, want_new = expected(hs, cs, batch, valid, cap,
+                                                   create, w, wide)
+    assert got_size == want_size and got_new == want_new
+    keys = got_k.view(np.uint64) ^ (SIGN if wide else np.uint64(0))
+    np.testing.assert_array_equal(keys, want_k)
+    np.testing.assert_array_equal(got_c, want_c)

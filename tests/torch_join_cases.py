@@ -8,15 +8,17 @@ and `stale` (sorted) after them, beyond its live size, as a table holds
 old keys after a restore or a grow.  The first group repeats
 tests/test_pallas_merge.py's lookup cases and seeds (the empty-table
 case with 20,000 queries instead of 12,000); the rest put a hot
-query key's run across the 1024-query tiles of the CUDA kernel and the
+query key's run across 1024-lane tiles (the CUDA kernel's first tile
+size), the CUDA kernel's tiles of CUDA_TILE merged lanes and the
 8192-lane tiles of the TPU kernel, with its table lane in an earlier
-tile.
+tile, or start a run of misses exactly at a CUDA tile's first lane.
 """
 
 import numpy as np
 
 CAP = 1 << 14
 NQ = 20000        # queries of every case (one JAX compile for all)
+CUDA_TILE = 4096  # the CUDA kernel's tile (torch_merge_cases.CUDA_TILE)
 _NONE = np.zeros(0, np.uint64)
 
 
@@ -61,17 +63,20 @@ def _stale_beyond_size():
     return hs, cs, batch, valid, CAP, np.sort(stale)
 
 
-def _hot_run(n_below, seed):
+def _hot_run(n_below, seed, hot_in_table=True):
     """A hot key with n_below smaller table keys and no smaller query,
     so its table lane is merged lane n_below, just before its query run
-    (n_below = 1023 or 8191: the last lane of a tile); the run spans
-    several query tiles."""
+    (n_below = 1023, 4095 or 8191: the last lane of a tile); the run spans
+    several query tiles.  Without its table lane (hot_in_table False) the
+    hot key's queries all miss, and their run starts at merged lane
+    n_below."""
     rng = np.random.default_rng(seed)
     hot = np.uint64(1 << 50)
     below = np.unique(rng.integers(0, 1 << 49, n_below + 100,
                                    dtype=np.uint64))[:n_below]
     above = np.unique(rng.integers(1 << 51, 1 << 62, 300, dtype=np.uint64))
-    hs = np.concatenate([below, [hot], above]).astype(np.uint64)
+    hs = np.concatenate([below, np.full(int(hot_in_table), hot, np.uint64),
+                         above])
     cs = rng.integers(0, 1024, len(hs)).astype(np.int32)
     batch = np.concatenate([np.full(NQ - 400, hot, np.uint64),
                             rng.choice(above, 200),
@@ -89,6 +94,8 @@ CASES = {
     "hot_run_cuda_tile_edge": lambda: _hot_run(1023, 20),
     "hot_run_tpu_tile_edge": lambda: _hot_run(8191, 21),
     "hot_run_mid_tile": lambda: _hot_run(700, 22),
+    "table_lane_at_cuda_tile_end": lambda: _hot_run(CUDA_TILE - 1, 23),
+    "miss_run_starts_cuda_tile": lambda: _hot_run(CUDA_TILE, 24, False),
 }
 
 

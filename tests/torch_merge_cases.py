@@ -5,8 +5,11 @@ numpy only: chip_smoke.py imports this module on a machine without JAX.
 Each case of CASES is (table hashes, table counts, batch hashes, batch
 valid mask, cap, create).  The first group repeats
 tests/test_pallas_merge.py's cases and seeds (TPU tile = 8192 lanes);
-the second puts key runs at the edges of the CUDA kernel's 1024-lane
-tiles.
+the second puts key runs at the edges of 1024-lane tiles (the CUDA
+kernel's first tile size); the third at the edges of the CUDA kernel's
+tiles of CUDA_TILE merged lanes, with runs and an INT64_MAX tail over
+several tiles, a random case of over 64 tiles and a full table that
+overflows.
 
 MODE_CASES hold the weighted (Bloom-gated) and wide (k >= 32) modes:
 (table hashes, table counts, batch hashes, batch valid mask, batch
@@ -15,24 +18,29 @@ cases use all 64 bits, with keys >= 2^63, the raw values that encode to
 INT64_MIN and -1 (0 and 2^63 - 1) at the stream's ends, and the 0xFF..FF clamp
 of tests/test_pallas_merge.py::test_wide_merge_create_false_and_clamp;
 the weighted cases put zero-weight runs across tiles.
+
+CUDA_TILE is the CUDA kernel's tile (yak_merge_reduce_tile() in
+yak_tpu_torch/csrc/merge_reduce.cu; chip_smoke.py checks that the two
+agree).
 """
 
 import numpy as np
 
 CAP = 1 << 14
+CUDA_TILE = 4096
 U64_MAX = (1 << 64) - 1
 SIGN = np.uint64(1 << 63)
 INT64_MAX = (1 << 63) - 1
 
 
-def _random_case(seed, n_table, n_batch, space_n, create=True):
+def _random_case(seed, n_table, n_batch, space_n, create=True, cap=CAP):
     rng = np.random.default_rng(seed)
     space = rng.integers(0, 1 << 62, space_n, dtype=np.uint64)
     hs = rng.choice(space, size=n_table, replace=False).astype(np.uint64)
     cs = rng.integers(0, 900, n_table).astype(np.int32)
     batch = rng.choice(space, size=n_batch, replace=True).astype(np.uint64)
     valid = rng.random(n_batch) < 0.97
-    return hs, cs, batch, valid, CAP, create
+    return hs, cs, batch, valid, cap, create
 
 
 def _heavy():
@@ -62,6 +70,40 @@ def _hot_run(n_hot, table=None):
     return hs, cs, batch, np.ones(len(batch), bool), CAP, True
 
 
+def _multi_tile_hit(create):
+    """A table key's run over more than three CUDA tiles, its table lane
+    (and a smaller table key) in the first tile, then batch-only keys;
+    with create=False the run is kept and the batch-only keys dropped."""
+    hot = np.uint64(999)
+    batch = np.concatenate([np.full(3 * CUDA_TILE + 100, hot, np.uint64),
+                            np.arange(2000, 2300, dtype=np.uint64)])
+    return (np.array([5, hot, 1 << 40], np.uint64),
+            np.array([3, 7, 11], np.int32), batch, np.ones(len(batch), bool),
+            CAP, create)
+
+
+def _invalid_tail():
+    """A few valid lanes, then an INT64_MAX tail over several CUDA tiles
+    behind the partly filled tile that holds the last valid lane."""
+    rng = np.random.default_rng(31)
+    space = rng.integers(0, 1 << 62, 3000, dtype=np.uint64)
+    hs = rng.choice(space, size=1000, replace=False).astype(np.uint64)
+    batch = rng.choice(space, size=22000).astype(np.uint64)
+    valid = np.zeros(22000, bool)
+    valid[:5000] = True
+    return (hs, rng.integers(0, 900, 1000).astype(np.int32), batch, valid,
+            CAP, True)
+
+
+def _full_overflow():
+    """size = cap: a full table and new keys, so new_size > cap."""
+    rng = np.random.default_rng(32)
+    space = rng.choice(1 << 40, 30000, replace=False).astype(np.uint64)
+    return (space[:CAP], rng.integers(1, 900, CAP).astype(np.int32),
+            rng.choice(space, size=9000).astype(np.uint64),
+            np.ones(9000, bool), CAP, True)
+
+
 def _carried_dropped():
     hot = np.uint64(4242)   # spans tiles, absent from the table
     return (np.array([77], np.uint64), np.array([9], np.int32),
@@ -87,6 +129,15 @@ CASES = {
     "cuda_tile_edge_table_hit": (
         lambda: _hot_run(2047, (np.array([999, 5], np.uint64),
                                 np.array([1000, 2], np.int32))), False),
+    "cuda_tile_4095": (lambda: _hot_run(CUDA_TILE - 1), False),
+    "cuda_tile_4096": (lambda: _hot_run(CUDA_TILE), False),
+    "cuda_tile_4097": (lambda: _hot_run(CUDA_TILE + 1), False),
+    "cuda_table_hit_over_3_tiles": (lambda: _multi_tile_hit(True), False),
+    "cuda_create_false_carried_hit": (lambda: _multi_tile_hit(False), False),
+    "cuda_invalid_tail_tiles": (_invalid_tail, False),
+    "cuda_random_over_64_tiles": (
+        lambda: _random_case(33, 60000, 230000, 150000, cap=1 << 18), False),
+    "cuda_full_table_overflow": (_full_overflow, False),
 }
 
 
@@ -136,6 +187,35 @@ def _wide_edges(single_run):
         batch = np.concatenate([np.full(3, lo, np.uint64),
                                 np.full(1030, minus1, np.uint64)])
     return hs, cs, batch, np.ones(len(batch), bool), None, CAP, True, True
+
+
+def _wide_run_cuda_edge():
+    """Raw 0 (INT64_MIN encoded) first, then a run of raw 2^63 - 1
+    (encoded -1) over the first CUDA tile edge to the stream's end."""
+    lo, minus1 = np.uint64(0), np.uint64((1 << 63) - 1)
+    batch = np.concatenate([np.full(3, lo, np.uint64),
+                            np.full(CUDA_TILE + 10, minus1, np.uint64)])
+    return (np.array([minus1], np.uint64), np.array([4], np.int32), batch,
+            np.ones(len(batch), bool), None, CAP, True, True)
+
+
+def _weighted_run_cuda_edges(last_weight, spread=0):
+    """A table-less key's run over two CUDA tile edges (lanes 100 to
+    2 CUDA_TILE + 200), behind and before other keys; every lane weighs
+    0, or all but the run's last, which weighs last_weight; with spread,
+    also one lane in each of the run's first two tiles, so that the sum
+    carried into its last tile is small and made of both."""
+    a, b, c = np.uint64(1000), np.uint64(2000), np.uint64(3000)
+    n = 2 * CUDA_TILE + 100
+    batch = np.concatenate([np.full(100, a, np.uint64),
+                            np.full(n, b, np.uint64),
+                            np.full(50, c, np.uint64)])
+    w = np.ones(len(batch), np.int32)
+    w[100:100 + n] = 0
+    w[100 + n - 1] = last_weight
+    w[[150, CUDA_TILE + 150]] = spread
+    return (np.array([c], np.uint64), np.array([6], np.int32), batch,
+            np.ones(len(batch), bool), w, CAP, True, False)
 
 
 def _weighted_random(seed, create=True):
@@ -190,6 +270,10 @@ MODE_CASES = {name: _padded(build) for name, build in {
     "wide_sign_single_run": lambda: _wide_edges(True),
     "wide_sign_stream_ends": lambda: _wide_edges(False),
     "weighted_wide": lambda: _wide_random(29, weighted=True),
+    "weighted_zero_run_cuda_edges": lambda: _weighted_run_cuda_edges(0),
+    "weighted_last_lane_cuda_edges": lambda: _weighted_run_cuda_edges(5),
+    "weighted_small_sums_cuda_edges": lambda: _weighted_run_cuda_edges(1, 2),
+    "wide_run_cuda_edge": _wide_run_cuda_edge,
 }.items()}
 
 

@@ -9,7 +9,12 @@ k >= 32).  For CUDA tensors it launches the hand-written Hopper kernel
 `yak_tpu_torch/csrc/merge_reduce.cu` (see the note at its top for the
 design); for CPU tensors it runs `merge_reduce_plain`, the plain torch
 version of the same contract.  There is no fallback between the two: a
-CUDA tensor launches the kernel or raises.
+CUDA tensor launches the kernel or raises.  A launch is one memset, one
+partition and one persistent main kernel on the current stream, with
+no host read-back; the wrapper allocates the outputs and one int64
+scratch tensor (tile counter, new_size and n_new, two look-back status
+words a tile, the partition), sized from the host's bound on the tiles,
+cap + B merged lanes.
 
 Contract (sorttable.merge_batch_impl in ADD mode, with the zero-weight
 lanes invalid, yak_tpu/ops/sorttable.py:90-171):
@@ -113,16 +118,17 @@ def _library():
     p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.yak_merge_reduce.argtypes = [
         p, p, p, i64, p, p, i64,          # inputs
-        i32, i32, i64,                    # create, wide, ntiles
-        p, p, p, p, p, p,                 # scratch
-        p, p, p, p,                       # outputs
+        i32, i64, p,                      # create, ntiles, scratch
+        p, p,                             # outputs
         p]                                # stream
     lib.yak_merge_reduce.restype = i32
     lib.yak_merge_join.argtypes = [
         p, p, p, i64, p, p, i64, i64,     # inputs, ntiles
-        p, p, p,                          # scratch, output
+        p, p,                             # scratch, output
         p]                                # stream
     lib.yak_merge_join.restype = i32
+    lib.yak_merge_scratch_words.argtypes = [i64, i32]
+    lib.yak_merge_scratch_words.restype = i64
     lib.yak_merge_reduce_tile.argtypes = []
     lib.yak_merge_reduce_tile.restype = i32
     lib.yak_cuda_error_string.argtypes = [i32]
@@ -130,36 +136,31 @@ def _library():
     return lib
 
 
+def _scratch(lib, dev, cap, nbatch, join):
+    """(ntiles, scratch): the host's bound on the tiles of the merged
+    stream (cap + nbatch lanes) and the kernel's int64 scratch for them
+    (tile counter, new_size and n_new, the look-back status words, the
+    partition); the kernel zeroes what must start at 0."""
+    ntiles = max(1, -(-(cap + nbatch) // lib.yak_merge_reduce_tile()))
+    words = lib.yak_merge_scratch_words(ntiles, int(join))
+    return ntiles, torch.empty(words, dtype=torch.int64, device=dev)
+
+
 def _launch(tkeys, tcnt, size, bkeys, create, weights, wide):
     lib = _library()
     dev = tkeys.device
     cap, nbatch = tkeys.numel(), bkeys.numel()
-    tile = lib.yak_merge_reduce_tile()
-    ntiles = max(1, -(-(cap + nbatch) // tile))
-
-    def empty(n, dt):
-        return torch.empty(n, dtype=dt, device=dev)
-
-    part = empty(ntiles + 1, torch.int64)
-    nb = empty(1, torch.int64)
-    seg = empty(3 * ntiles, torch.int32)
-    cnt = empty(3 * ntiles, torch.int32)
-    carry = empty(2 * ntiles, torch.int32)
-    out_off = empty(ntiles, torch.int64)
-    okeys = empty(cap, torch.int64)
-    ocnt = empty(cap, torch.int32)
-    new_size = torch.empty((), dtype=torch.int32, device=dev)
-    n_new = torch.empty((), dtype=torch.int32, device=dev)
+    ntiles, scratch = _scratch(lib, dev, cap, nbatch, join=False)
+    okeys = torch.empty(cap, dtype=torch.int64, device=dev)
+    ocnt = torch.empty(cap, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.yak_merge_reduce(
             tkeys.data_ptr(), tcnt.data_ptr(), size.data_ptr(), cap,
             bkeys.data_ptr(),
             None if weights is None else weights.data_ptr(), nbatch,
-            int(bool(create)), int(bool(wide)), ntiles, part.data_ptr(),
-            nb.data_ptr(), seg.data_ptr(), cnt.data_ptr(), carry.data_ptr(),
-            out_off.data_ptr(), okeys.data_ptr(), ocnt.data_ptr(),
-            new_size.data_ptr(), n_new.data_ptr(), stream)
+            int(bool(create)), ntiles, scratch.data_ptr(), okeys.data_ptr(),
+            ocnt.data_ptr(), stream)
     _raise_launch(lib, err, "merge_reduce")
     merge_reduce.launches += 1
     modes = merge_reduce.mode_launches
@@ -169,7 +170,9 @@ def _launch(tkeys, tcnt, size, bkeys, create, weights, wide):
         modes["wide"] += 1
     if weights is None and not wide:
         modes["count"] += 1
-    return okeys, ocnt, new_size, n_new
+    # new_size and n_new are int32 halves 1 and 2 of the scratch's head
+    head = scratch[:2].view(torch.int32)
+    return okeys, ocnt, head[1], head[2]
 
 
 def merge_reduce_plain(tkeys, tcnt, size, bkeys, create=True,
@@ -218,16 +221,14 @@ def _launch_join(tkeys, tcnt, size, qkeys, qidx):
     lib = _library()
     dev = tkeys.device
     cap, nq = tkeys.numel(), qkeys.numel()
-    ntiles = max(1, -(-(cap + nq) // lib.yak_merge_reduce_tile()))
-    part = torch.empty(ntiles + 1, dtype=torch.int64, device=dev)
-    nb = torch.empty(1, dtype=torch.int64, device=dev)
+    ntiles, scratch = _scratch(lib, dev, cap, nq, join=True)
     vals = torch.empty(nq, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.yak_merge_join(
             tkeys.data_ptr(), tcnt.data_ptr(), size.data_ptr(), cap,
-            qkeys.data_ptr(), qidx.data_ptr(), nq, ntiles, part.data_ptr(),
-            nb.data_ptr(), vals.data_ptr(), stream)
+            qkeys.data_ptr(), qidx.data_ptr(), nq, ntiles,
+            scratch.data_ptr(), vals.data_ptr(), stream)
     _raise_launch(lib, err, "merge_join")
     merge_join.launches += 1
     return vals
