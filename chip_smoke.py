@@ -34,14 +34,18 @@ Phases, in order; any failure exits non-zero:
      files for a FASTQ and a FASTA with N runs;
   6. the lookup kernels (the merge-JOIN entry point of merge_reduce.cu
      and csrc/compact.cu) vs their plain torch versions on the card: the
-     cases of tests/torch_join_cases.py and tests/torch_compact_cases.py,
-     and the arguments of every JOIN and compaction call of one qv run
-     (bench.py's warm-up read set) and one chkerr run of each phase 8
-     input (captured as the lookup path passes them, so at its exact
+     compaction's tile must be tests/torch_compact_cases.py's CUDA_TILE;
+     the cases of tests/torch_join_cases.py and
+     tests/torch_compact_cases.py (the compaction's at each 4-byte
+     offset from a 16-byte boundary, and with klo the same tensor as
+     khi), and the arguments of every JOIN and compaction call of one qv
+     run (bench.py's warm-up read set) and one chkerr run of each phase
+     8 input (captured as the lookup path passes them, so at its exact
      shapes; these runs are also the warm-up); outputs must be equal,
      and both versions are timed with CUDA events at the main path's
      shapes (JOIN: cap 2^23, 6,226,713 live keys, 8,388,578 queries;
-     compaction: 8,388,578 lanes);
+     compaction: 8,388,578 lanes), the compaction also on a dense
+     synthetic input (8,388,578 lanes, half kept, seed 16);
   7. qv at real size: bench.py's qv workload (400,000 error-free 150 bp
      reads of the phase 4 genome, seeds 101 and 102, chunk 2^23) through
      models.qv.run_qv against phase 4's table; cnt must sum to
@@ -119,7 +123,10 @@ one per instantiation, name the other four TPU kernels it replaces
 under `replaces_also` and give the radix passes of the timed call
 under `passes`; the JOIN's gives under `identity_qidx_device_ms` its
 device time on the same call with qidx the identity, whose stores
-coalesce) and the contract line
+coalesce; the compaction's top-level times are chkerr's call, and
+`shapes` gives the times, bound and library time of each timed shape:
+chkerr, the -b24 sentinel post (phase 13) and the dense input) and the
+contract line
 {"ok": true, "device": {...}}.  Imports no JAX.
 """
 
@@ -183,6 +190,7 @@ K33_DISTINCT = 6_412_500             # bench.py:565
 K33_HIST = "a56a84001d46"            # bench.py:566
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM device memory rate
 REPLAY_CAP_LOG2 = 21                 # phase 12's first table capacity
+DENSE_COMPACT = (8_388_578, 0.5, 16)  # phase 6's dense compaction input
 
 
 def log(msg):
@@ -717,7 +725,9 @@ def lookup_kernel_checks(dev, table, paths, card):
     """Phase 6; returns {kernel: (max_abs_err, ms, plain_ms, device_ms,
     plain_device_ms)}."""
     sys.path.insert(0, os.path.join(ROOT, "tests"))
-    from torch_compact_cases import CASES as COMPACT_CASES, as_int32
+    from torch_compact_cases import CASES as COMPACT_CASES
+    from torch_compact_cases import CUDA_TILE as COMPACT_TILE
+    from torch_compact_cases import offset_planes, random_planes
     from torch_join_cases import CASES as JOIN_CASES, expected, table_arrays
     from yak_tpu_torch.models.qv import run_qv
     from yak_tpu_torch.ops import compact, merge
@@ -738,10 +748,21 @@ def lookup_kernel_checks(dev, table, paths, card):
                               expected(hs, cs, batch, valid)):
             raise AssertionError(f"{name}: JOIN kernel != numpy contract")
     log(f"  JOIN: {len(JOIN_CASES)} cases equal")
+    tile = compact._library().yak_compact_tile()
+    if tile != COMPACT_TILE:
+        raise AssertionError(f"the compaction kernel's tile is {tile} lanes, "
+                             f"the fixtures' CUDA_TILE {COMPACT_TILE}")
+    log(f"  compaction tile {tile} lanes = the fixtures' CUDA_TILE")
     for name, (build, _pallas) in COMPACT_CASES.items():
-        planes = [torch.from_numpy(as_int32(a)).to(dev) for a in build()]
-        errs["compact"] = max(errs["compact"], check_compact(planes, name))
-    log(f"  compaction: {len(COMPACT_CASES)} cases equal")
+        arrays = build()
+        for offset in range(4):
+            khi, klo, v = offset_planes(arrays, dev, offset)
+            for planes, note in (((khi, klo, v), ""),
+                                 ((khi, khi, v), ", klo = khi")):
+                errs["compact"] = max(errs["compact"], check_compact(
+                    planes, f"{name} at lane offset {offset}{note}"))
+    log(f"  compaction: {len(COMPACT_CASES)} cases equal at each 4-byte "
+        f"offset from a 16-byte boundary, with klo separate and klo = khi")
 
     # the lookup path's own calls, captured from a warm-up run of each
     with captured("merge", "merge_join") as qv_joins:
@@ -785,10 +806,15 @@ def lookup_kernel_checks(dev, table, paths, card):
     log(f"  JOIN with qidx the identity (coalesced stores): {ident[1]:.4f} "
         f"ms device only [{card}]")
     out["merge_join"]["identity_qidx_device_ms"] = ident[1]
-    out["compact"] = time_compact(max(ch_compacts,
-                                      key=lambda a: a[0].numel()),
-                                  "compaction (chkerr)", card)
-    out["compact"]["max_abs_err"] = errs["compact"]
+    chkerr = time_compact(max(ch_compacts, key=lambda a: a[0].numel()),
+                          "compaction (chkerr)", card)
+    n, density, seed = DENSE_COMPACT
+    dense = offset_planes(random_planes(n, density, seed), dev, 0)
+    errs["compact"] = max(errs["compact"],
+                          check_compact(dense, "dense compaction"))
+    out["compact"] = dict(chkerr, max_abs_err=errs["compact"], shapes={
+        "chkerr": chkerr,
+        "dense": time_compact(dense, "compaction (dense)", card)})
     return out
 
 
@@ -809,18 +835,21 @@ def time_kernel(kernel, plain, args, bound, library, label, card):
 
 
 def time_compact(args, label, card):
-    """time_kernel for one compaction call.  Bound: khi read once, klo
-    and v read and all three planes written for each kept lane.  Library
-    call: boolean-mask indexing of the stacked planes."""
+    """time_kernel for one compaction call, with its lanes `n` and kept
+    lanes `kept`.  Bound: khi read once, klo and v read (where they are
+    not khi's storage) and all three planes written for each kept lane.  Library call: boolean-mask
+    indexing of the stacked planes."""
     from yak_tpu_torch.ops import compact
 
     khi, klo, v = args
     n, kept = khi.numel(), int((khi >= 0).sum())
-    return time_kernel(
+    # a plane that shares an earlier plane's storage is read with it
+    reads = len({p.data_ptr() for p in args} - {khi.data_ptr()})
+    return dict(time_kernel(
         compact.compact, compact.compact_plain, args,
-        (4 * n + 20 * kept) / HBM_BYTES_PER_S * 1e3,
+        (4 * n + (4 * reads + 12) * kept) / HBM_BYTES_PER_S * 1e3,
         lambda: torch.stack([khi, klo, v])[:, khi >= 0],
-        f"{label} (n {n}, kept {kept})", card)
+        f"{label} (n {n}, kept {kept})", card), n=n, kept=kept)
 
 
 class _Timeline:
@@ -1216,8 +1245,9 @@ def replay_paths(dev, chunks, d):
 
 def mode_kernel_checks(dev, merges, compacts, card):
     """Phase 13: the mode cases, then every captured call; returns the
-    kernels-line entries of the weighted and wide modes and the
-    compaction's time at the sentinel post's shape."""
+    kernels-line entries of the weighted and wide modes, the count
+    mode's and the compaction's max abs errors, and the compaction's
+    times at the sentinel post's shape (None without a captured call)."""
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     from torch_merge_cases import (MODE_CASES, SIGN, expected,
                                    sorted_batch, sorted_table)
@@ -1282,9 +1312,10 @@ def mode_kernel_checks(dev, merges, compacts, card):
     mean_times([time_merge(merge, a, kw, f"b24 pass-2 merge {i}")
                 for i, (a, kw) in enumerate(calls)], err["merge_reduce"],
                f"the {len(calls)} b24 pass-2 calls [{card}]")
+    sentinel = None
     if compacts:
-        time_compact(max(compacts, key=lambda a: a[0].numel()),
-                     "compaction (-b24 sentinel post)", card)
+        sentinel = time_compact(max(compacts, key=lambda a: a[0].numel()),
+                                "compaction (-b24 sentinel post)", card)
     # the two -b24 gate posts on a pass-1 batch, from an empty filter
     from yak_tpu_torch.ops import bloom, countstep
 
@@ -1296,7 +1327,7 @@ def mode_kernel_checks(dev, merges, compacts, card):
         ms = time_ms(lambda: post(bkeys, bf, 10, 24, 4), 5)
         log(f"  {post.__name__} at -b24 (B {bkeys.numel()}): {ms[0]:.4f} ms "
             f"back to back, {ms[1]:.4f} ms device only [{card}]")
-    return out, err["merge_reduce"], cerr
+    return out, err["merge_reduce"], cerr, sentinel
 
 
 def count_cli_check(psort=False):
@@ -1577,14 +1608,17 @@ def main():
         os.rmdir(d)
 
     phase("13. weighted and wide merge modes vs plain torch on the card")
-    modes, count_err, sent_err = mode_kernel_checks(dev, merges, compacts,
-                                                     card)
+    modes, count_err, sent_err, sentinel = mode_kernel_checks(
+        dev, merges, compacts, card)
     del merges, compacts
     results.update(modes)
     results["merge_reduce"]["max_abs_err"] = max(
         results["merge_reduce"]["max_abs_err"], count_err)
     results["compact"]["max_abs_err"] = max(
         results["compact"]["max_abs_err"], sent_err)
+    if sentinel is None:
+        raise AssertionError("the -b24 paths made no compaction call")
+    results["compact"]["shapes"]["sentinel_post"] = sentinel
 
     phase("14. count -b24 / -k33 CLI on the card vs on the CPU")
     count_cli_check()

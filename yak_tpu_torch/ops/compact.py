@@ -13,10 +13,14 @@ Contract:
 
   khi, klo, v  int32 [n]   three planes; a lane is dropped where khi < 0
                            (bit 31 set: the JAX package's marker
-                           0x80000000)
+                           0x80000000); n < 2^31; the planes may
+                           alias one another and need not be 16-byte
+                           aligned
 
 returns (ohi, olo, ov int32 [n], n_kept int32 []): the kept lanes first,
-in input order; lanes from n_kept on are unspecified.
+in input order; lanes from n_kept on are unspecified.  On the card each
+plane is an allocation of its own, and n_kept a view of the call's
+scratch (one 8-byte word a 16384-lane tile).
 """
 
 import ctypes
@@ -34,6 +38,9 @@ def _check(khi, klo, v):
             raise ValueError(f"compact: {name} must be 1-D and contiguous")
         if t.device != khi.device or t.shape != khi.shape:
             raise ValueError("compact: the planes differ in device or shape")
+    if khi.numel() >= 1 << 31:
+        raise ValueError(f"compact: {khi.numel()} lanes; n_kept is int32, "
+                         f"so n must be below 2^31")
 
 
 def compact(khi, klo, v):
@@ -55,11 +62,13 @@ def _library():
 
     lib, _secs = cuda_build.load("compact")
     p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    lib.yak_compact.argtypes = [p, p, p, i64, i64,   # inputs, n, ntiles
-                                p, p,                # scratch
-                                p, p, p, p,          # outputs
-                                p]                   # stream
+    lib.yak_compact.argtypes = [p, p, p, i64,   # inputs, n
+                                p,              # scratch
+                                p, p, p,        # outputs
+                                p, i32]         # stream, device
     lib.yak_compact.restype = i32
+    lib.yak_compact_scratch_words.argtypes = [p, i64]
+    lib.yak_compact_scratch_words.restype = i64
     lib.yak_compact_tile.argtypes = []
     lib.yak_compact_tile.restype = i32
     lib.yak_compact_error_string.argtypes = [i32]
@@ -69,25 +78,21 @@ def _library():
 
 def _launch(khi, klo, v):
     lib = _library()
-    dev = khi.device
     n = khi.numel()
-    ntiles = max(1, -(-n // lib.yak_compact_tile()))
-    tile_cnt = torch.empty(ntiles, dtype=torch.int32, device=dev)
-    tile_off = torch.empty(ntiles, dtype=torch.int64, device=dev)
-    ohi, olo, ov = (torch.empty(n, dtype=torch.int32, device=dev)
+    # the tile counter with n_kept as its high half, then the status words
+    scratch = torch.empty(lib.yak_compact_scratch_words(khi.data_ptr(), n),
+                          dtype=torch.int64, device=khi.device)
+    ohi, olo, ov = (torch.empty(n, dtype=torch.int32, device=khi.device)
                     for _ in range(3))
-    n_kept = torch.empty((), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.yak_compact(
-            khi.data_ptr(), klo.data_ptr(), v.data_ptr(), n, ntiles,
-            tile_cnt.data_ptr(), tile_off.data_ptr(), ohi.data_ptr(),
-            olo.data_ptr(), ov.data_ptr(), n_kept.data_ptr(), stream)
+    err = lib.yak_compact(
+        khi.data_ptr(), klo.data_ptr(), v.data_ptr(), n, scratch.data_ptr(),
+        ohi.data_ptr(), olo.data_ptr(), ov.data_ptr(),
+        torch.cuda.current_stream(khi.device).cuda_stream, khi.device.index)
     if err != 0:
         msg = lib.yak_compact_error_string(err).decode()
         raise RuntimeError(f"compact kernel launch failed: {msg}")
     compact.launches += 1
-    return ohi, olo, ov, n_kept
+    return ohi, olo, ov, scratch.view(torch.int32)[1]
 
 
 def compact_plain(khi, klo, v):
