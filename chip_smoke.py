@@ -110,7 +110,42 @@ Phases, in order; any failure exits non-zero:
      phase 8's contigs and reads (the same rows, no compaction launch),
      each launching the sort kernel, with per-fold and per-chunk splits;
      then the CLI's count -k31 on the card and on the CPU under the
-     variable must dump byte-identical .yak files.
+     variable must dump byte-identical .yak files;
+ 17. the trio lookup kernels vs their plain torch versions on the card,
+     bit for bit: every JOIN and compaction call of a triobin -p run
+     (the first 4 contigs of phase 18's warm-up set: one full chunk)
+     and of a trioeval run (phase 20's warm-up set), and every sort call
+     of the same two runs under the psort engine; the JOIN, the two
+     compactions (triobin -p's markers, trioeval's) and the three sorts
+     (the query sort, trioeval's markers, triobin -p's markers) timed at
+     those calls;
+ 18. triobin at real size: bench.py's flag table, phase 4's keys with
+     flag (h >> 7) % 15 + 1 (bench.py:297-300), against 24 contigs of
+     the genome rotated at random offsets (bench.py:305-309), seed 6 as
+     the warm-up, then seeds 7 and 8, whose stdout md5[:12] must equal
+     TB_DIGEST (bench.py:252); prints positions/s (24 x (2,000,000 -
+     30) a seed), the per-chunk split on the device timeline (extract,
+     sort, join, post, markers) and the device's idle share;
+ 19. triobin -p on seed 7, on both engines: the output less its D rows
+     must be phase 18's, the psort engine's bytes the default engine's;
+     the D rows pass the marker budget, so chunks copy every marker
+     from the device;
+ 20. trioeval at real size: the flags of the port's own extraction of
+     the genome, 2 and 8 in alternating 10 kb blocks, the first
+     occurrence of a hash kept (bench.py:466-476), seeds 17 and 18 after
+     phase 17's run of seed 16; md5[:12] must equal TE_DIGEST
+     (bench.py:450);
+ 21. restore-into at real size: phase 4's table dumped as pat and the
+     -b24 table (phase 10's, by the same-file shortcut) as mat;
+     load_trio_tables on the card and on the CPU must give the same
+     keys and flags;
+ 22. the psort engine on the trio paths: triobin seed 7 and trioeval
+     seed 17 under YAK_TPU_PSORT=1, the same digests, the sort kernel
+     launched and the compaction not;
+ 23. the CLI's triobin -p and trioeval -e (pat counted from phase 5's
+     FASTQ, mat from its FASTA, the FASTA as the child) and qv -p and
+     chkerr -c 12 against a table counted with -k33, chunk 16384, on the
+     card and on the CPU in this process: byte-identical stdout.
 
 The last two lines of stdout are a JSON line of per-kernel results
 (`launches` summed over the paths that drive the kernel, each with the
@@ -125,7 +160,9 @@ under `passes`; the JOIN's gives under `identity_qidx_device_ms` its
 device time on the same call with qidx the identity, whose stores
 coalesce; the compaction's top-level times are chkerr's call, and
 `shapes` gives the times, bound and library time of each timed shape:
-chkerr, the -b24 sentinel post (phase 13) and the dense input) and the
+chkerr, the -b24 sentinel post (phase 13), the dense input, and the
+trio paths' calls (phase 17: `triobin_diff`, `trioeval`); the JOIN's
+and the sorts' `shapes` give their trio calls likewise) and the
 contract line
 {"ok": true, "device": {...}}.  Imports no JAX.
 """
@@ -135,6 +172,7 @@ import hashlib
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -191,6 +229,9 @@ K33_HIST = "a56a84001d46"            # bench.py:566
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM device memory rate
 REPLAY_CAP_LOG2 = 21                 # phase 12's first table capacity
 DENSE_COMPACT = (8_388_578, 0.5, 16)  # phase 6's dense compaction input
+TRIO_CONTIGS = 24                    # bench.py:302
+TB_DIGEST = {7: "d813150efc7a", 8: "34ffd15f941e"}   # bench.py:252
+TE_DIGEST = {17: "f3a76225e75b", 18: "d46fdf6d1eea"}  # bench.py:450
 
 
 def log(msg):
@@ -925,7 +966,8 @@ def qv_run(table, paths, seed, card, timeline=True):
 
 def split_chunks(marks, card):
     """Per-chunk device spans (CUDA events) and host spans of one marked
-    qv run, and the host time between chunks (ingest, packing, h2d)."""
+    lookup run, and the host time between chunks (ingest, packing, h2d);
+    returns the device busy ms and the per-phase sums."""
     chunks, cur = [], None
     for m in marks:
         if m[0] == "start":
@@ -933,11 +975,13 @@ def split_chunks(marks, card):
             chunks.append(cur)
         else:
             cur.append(m)
-    busy = 0.0
+    busy, by_phase = 0.0, {}
     for i, c in enumerate(chunks):
         dev = [(b[0], a[1].elapsed_time(b[1])) for a, b in zip(c, c[1:])]
         host = [(b[0], (b[2] - a[2]) * 1e3) for a, b in zip(c, c[1:])]
         busy += sum(ms for _n, ms in dev)
+        for n, ms in dev:
+            by_phase[n] = by_phase.get(n, 0.0) + ms
         log(f"  chunk {i} device: " + ", ".join(
             f"{n} {ms:.4f} ms" for n, ms in dev) + f" [{card}]")
         log(f"  chunk {i} host:   " + ", ".join(
@@ -945,6 +989,7 @@ def split_chunks(marks, card):
     between = sum(b[0][2] - a[-1][2] for a, b in zip(chunks, chunks[1:]))
     log(f"  device lookup+post {busy:.4f} ms over {len(chunks)} chunks; "
         f"host between chunks (read, pack, upload) {between * 1e3:.4f} ms")
+    return busy, by_phase
 
 
 def chkerr_path(table, paths, card):
@@ -1527,6 +1572,400 @@ def sort_kernel_checks(dev, card, chunks, files, paths, ch_texts):
     return out
 
 
+# -- phases 17-23: trio binning and evaluation ----------------------------
+
+def trio_sets(d, genome, seeds):
+    """bench.py:305-309 and 482-486: each seed's 24 contigs, the genome
+    rotated at random offsets, as one-line FASTA (names s0..s23)."""
+    paths = {}
+    for seed in seeds:
+        rng = np.random.default_rng(seed)
+        paths[seed] = os.path.join(d, f"trio_{seed}.fa")
+        write_fasta(paths[seed], [np.roll(genome, int(r)) for r in
+                                  rng.integers(0, GENOME_LEN, TRIO_CONTIGS)])
+    return paths
+
+
+def trio_tables(dev, count_items, genome):
+    """bench.py's two flag tables on the card: triobin's from phase 4's
+    keys, flag (h >> 7) % 15 + 1 (bench.py:297-300); trioeval's from the
+    port's own extraction of the genome, 2 and 8 in alternating 10 kb
+    blocks, the first occurrence of a hash kept (bench.py:466-476)."""
+    from yak_tpu_torch.io.pack import pack_planes
+    from yak_tpu_torch.ops.keys import torch_to_u64, u32_to_torch
+    from yak_tpu_torch.ops.kmers import extract_from_planes
+    from yak_tpu_torch.table import KmerTable
+
+    h, _c = count_items
+    tb = KmerTable(K, device=dev)
+    tb._set_pairs(h, ((h >> np.uint64(7)) % np.uint64(15)
+                      + np.uint64(1)).astype(np.int32))
+    planes = [u32_to_torch(p, dev) for p in pack_planes(genome[None, :])]
+    gh, valid = extract_from_planes(*planes, K, GENOME_LEN)
+    if not bool(valid.all()):
+        raise AssertionError("the genome has an invalid window")
+    gh = torch_to_u64(gh.reshape(-1))
+    pos_flag = np.where((np.arange(len(gh)) // 10_000) % 2 == 0, 2, 8)
+    keys, first = np.unique(gh, return_index=True)
+    te = KmerTable(K, device=dev)
+    te._set_pairs(keys, pos_flag[first].astype(np.int32))
+    log(f"  triobin table {tb.tot} keys, trioeval table {te.tot} keys")
+    return tb, te
+
+
+def trio_opts(**kw):
+    from yak_tpu_torch.models.trio import TrioOpts
+
+    return TrioOpts(**kw)
+
+
+class _TrioTimeline:
+    """Stands in for ops.countstep inside models.trio: marks each chunk's
+    phases with a CUDA event and the host clock ("start" as the lookup
+    is queued, then "extract", "sort", "join", "post" after the typing
+    and the reduction or the marker mid, "markers" after the compaction
+    or the marker sort)."""
+
+    def __init__(self, countstep):
+        self.countstep, self.marks = countstep, []
+
+    def __getattr__(self, attr):
+        fn = getattr(self.countstep, attr)
+        name = {"triobin_reduce": "post", "trioeval_mark_mid": "post",
+                "run_mark_compact": "markers", "run_marker_sort": "markers",
+                "run_diff_sort": "markers"}.get(attr)
+        if name is None:
+            return fn
+
+        def marked(*args, **kw):
+            out = fn(*args, **kw)
+            self.mark(name)
+            return out
+        return marked
+
+    def mark(self, name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.marks.append((name, ev, time.perf_counter()))
+
+    def lookup_chunk(self, *args, **kw):
+        self.mark("start")
+        return self.countstep.lookup_chunk(*args, hook=self.mark, **kw)
+
+
+class _Sink:
+    """A stdout for the trio runs: the md5 of every byte, and the text
+    without its -p D rows."""
+
+    def __init__(self):
+        self.md5, self.kept, self.d_rows = hashlib.md5(), [], 0
+
+    def write(self, s):
+        self.md5.update(s.encode())
+        kept = re.sub(r"^D\t[^\n]*\n", "", s, flags=re.M)
+        self.d_rows += s.count("\n") - kept.count("\n")
+        self.kept.append(kept)
+
+    def digest(self):
+        return self.md5.hexdigest()[:12]
+
+    def text(self):
+        return "".join(self.kept)
+
+
+def trio_run(cmd, table, path, opt, timeline=False):
+    """One triobin or trioeval run; returns (the sink, wall s, the
+    timeline's marks or None)."""
+    from yak_tpu_torch.models import trio
+
+    sink = _Sink()
+    tl = _TrioTimeline(trio.countstep)
+    if timeline:
+        trio.countstep = tl
+    fn = trio.main_triobin if cmd == "triobin" else trio.main_trioeval
+    try:
+        t0 = time.perf_counter()
+        fn(opt, table, path, out=sink)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        trio.countstep = tl.countstep
+    return sink, wall, tl.marks if timeline else None
+
+
+def trio_gated(cmd, table, paths, seeds, digests, card, label):
+    """The gated runs of one workload (each seed's md5[:12] against
+    `digests`) with the per-chunk split on the device timeline, with the
+    launch counts set to 0 just before the runs and read just after;
+    returns ({seed: text}, launch counts)."""
+    npos = TRIO_CONTIGS * (GENOME_LEN - K + 1)
+    texts = {}
+    reset_counts()
+    for seed in seeds:
+        sink, wall, marks = trio_run(cmd, table, paths[seed], trio_opts(),
+                                     timeline=True)
+        texts[seed] = sink.text()
+        log(f"  {label} seed {seed}: md5 {sink.digest()} (gate "
+            f"{digests[seed]}), {texts[seed].count(chr(10))} lines; wall "
+            f"{wall:.4f} s, {npos / wall:.1f} positions/s [{card}]")
+        if sink.digest() != digests[seed]:
+            raise AssertionError(f"{label} seed {seed}: digest "
+                                 f"{sink.digest()} != {digests[seed]}")
+        busy, by_phase = split_chunks(marks, card)
+        log(f"  {label} seed {seed}: device by phase " + ", ".join(
+            f"{n} {ms:.4f} ms" for n, ms in by_phase.items())
+            + f"; busy {busy:.4f} ms of {wall * 1e3:.4f} ms wall, idle "
+            f"{1 - busy / (wall * 1e3):.4f} [{card}]")
+    return texts, read_counts()
+
+
+def trio_kernel_checks(tb, te, warm, card):
+    """Phase 17: every JOIN, compaction and sort call of a triobin -p
+    run (the first 4 contigs of the warm-up set, one full chunk) and a
+    trioeval run (the warm-up set), on both engines, held against the
+    plain versions; the largest call of each kind timed.  Returns
+    {kernel: (max abs err, {shape: entry})}."""
+    from yak_tpu_torch.ops import merge, sort
+
+    small = warm["triobin_small"]
+    with captured("merge", "merge_join") as js, \
+            captured("compact", "compact") as cs:
+        trio_run("triobin", tb, small, trio_opts(print_diff=True))
+        n_tb = len(cs)
+        trio_run("trioeval", te, warm["trioeval"], trio_opts())
+    with psort_engine(), captured("sort", "sort") as ss:
+        trio_run("triobin", tb, small, trio_opts(print_diff=True))
+        trio_run("trioeval", te, warm["trioeval"], trio_opts())
+    joins = [a for a, _kw in js]
+    compacts = [a for a, _kw in cs]
+    sorts = [(a[0], a[1] if len(a) > 1 else None) for a, _kw in ss]
+    if not (joins and n_tb and len(compacts) > n_tb and sorts):
+        raise AssertionError("the trio paths made no JOIN, compaction or "
+                             "sort call")
+    err = {"merge_join": max(check_join(a, f"trio JOIN {i}")
+                             for i, a in enumerate(joins)),
+           "compact": max(check_compact(a, f"trio compaction {i}")
+                          for i, a in enumerate(compacts))}
+    for i, a in enumerate(sorts):
+        check_sort(a, f"trio sort {i}")    # raises unless bit-equal
+    log(f"  kernel == plain on all {len(joins)} JOIN, {len(compacts)} "
+        f"compaction and {len(sorts)} sort calls of the trio paths")
+    args = max(joins, key=lambda a: a[3].numel())
+    live, nq = int(args[2]), args[3].numel()
+    shapes = {"merge_join": {"triobin": time_kernel(
+        merge.merge_join, merge.merge_join_plain, args,
+        (12 * live + 16 * nq) / HBM_BYTES_PER_S * 1e3, None,
+        f"trio JOIN (cap {args[0].numel()}, live {live}, B {nq})", card)},
+        "compact": {
+            "triobin_diff": time_compact(compacts[0], "compaction (triobin "
+                                         "-p)", card),
+            "trioeval": time_compact(compacts[-1],
+                                     "compaction (trioeval)", card)}}
+    for inst, label in (("i64_i32", "query"), ("i32_i32", "trioeval"),
+                        ("i32", "triobin_diff")):
+        mine = [a for a in sorts if sort.instance(*a) == inst]
+        if not mine:
+            raise AssertionError(f"the trio psort paths made no sort_{inst} "
+                                 f"call")
+        keys, pay = max(mine, key=lambda a: a[0].numel())
+        n = keys.numel()
+        lane_bytes = keys.element_size() + (0 if pay is None else 4)
+        shapes[f"sort_{inst}"] = {label: time_kernel(
+            sort.sort, sort.sort_plain, (keys, pay),
+            2 * n * lane_bytes / HBM_BYTES_PER_S * 1e3,
+            lambda keys=keys: torch.sort(keys),
+            f"trio sort_{inst} ({label}, n {n}, {len(mine)} calls)", card)}
+    return {name: (err.get(name, 0), shapes[name]) for name in shapes}
+
+
+def triobin_p_path(tb, paths, gated_text, card):
+    """Phase 19: triobin -p on seed 7 on both engines: the output less
+    its D rows is the gated run's, the psort engine's bytes the default
+    engine's; past the marker budget a chunk copies every marker from
+    the device.  Returns {path: launch counts}."""
+    from yak_tpu_torch.ops import countstep
+
+    counts, digests = {}, {}
+    for name, ctx, needed in (
+            ("triobin -p", contextlib.nullcontext(),
+             ("merge_join", "compact")),
+            ("psort triobin -p", psort_engine(),
+             ("merge_join", "sort_i64_i32", "sort_i32"))):
+        reset_counts()
+        with ctx:
+            sink, wall, _ = trio_run("triobin", tb, paths[7],
+                                     trio_opts(print_diff=True))
+        counts[name] = read_counts()
+        check_launched(counts[name], needed, name)
+        digests[name] = sink.digest()
+        n_chunks = counts[name]["merge_join"]
+        log(f"  {name} seed 7: {sink.d_rows} D rows over {n_chunks} chunks "
+            f"(budget {countstep.TRIOBIN_MAX_DIFF} a chunk), md5 "
+            f"{sink.digest()}, wall {wall:.4f} s [{card}]")
+        if sink.text() != gated_text:
+            raise AssertionError(f"{name}: the output less its D rows "
+                                 f"differs from the gated run's")
+        if sink.d_rows <= n_chunks * countstep.TRIOBIN_MAX_DIFF:
+            raise AssertionError(f"{name}: no chunk passed the marker budget")
+    if digests["triobin -p"] != digests["psort triobin -p"]:
+        raise AssertionError("triobin -p: the psort engine's output differs")
+    log("  the output less its D rows is the gated run's; both engines "
+        "print the same bytes")
+    return counts
+
+
+def restore_into_path(dev, d, count_items, reads, card):
+    """Phase 21: phase 4's table dumped as pat, the -b24 table (the
+    same-file shortcut, phase 10's table) as mat, load_trio_tables on
+    the card and on the CPU: the same keys and flags."""
+    from yak_tpu_torch.io.yakfmt import dump_yak
+    from yak_tpu_torch.models.trio import load_trio_tables
+
+    pat, mat = os.path.join(d, "pat.yak"), os.path.join(d, "mat.yak")
+    dump_yak(pat, K, 10, *count_items)
+    fa = os.path.join(d, "bloom_reads.fa")
+    write_fasta(fa, reads)
+    b24 = run_bloom([fa, fa], 24, dev)
+    check_gates(b24, "the -b24 mat table", BLOOM_DISTINCT, BLOOM_HIST)
+    b24.dump(mat)
+    del b24
+    out = []
+    for where in (dev, torch.device("cpu")):
+        t0 = time.perf_counter()
+        t = load_trio_tables(pat, mat, trio_opts(), where)
+        tot = t.tot                     # reads the size back: settled
+        secs = time.perf_counter() - t0
+        out.append(t.items())
+        log(f"  load_trio_tables on {where}: {tot} keys in {secs:.4f} s"
+            + (f" [{card}]" if where.type == "cuda" else ""))
+    (hc, vc), (hp, vp) = out
+    if not (np.array_equal(hc, hp) and np.array_equal(vc, vp)):
+        raise AssertionError("restore-into: card and CPU tables differ")
+    # at min_cnt 2 the pat file keeps exactly the keys counted twice or
+    # more, which are the -b24 table's keys: every key takes both flags
+    both = int((((vc & 3) > 0) & ((vc >> 2) > 0)).sum())
+    if not len(hc) == both == BLOOM_DISTINCT:
+        raise AssertionError(f"restore-into: {len(hc)} keys, {both} with "
+                             f"both flags, want {BLOOM_DISTINCT}")
+    log(f"  card and CPU tables equal: {len(hc)} keys, each with pat and "
+        f"mat flags")
+
+
+def trio_cli_check():
+    """Phase 23: triobin -p, trioeval -e, and qv -p / chkerr against a
+    k=33 table, through the CLI entry point on the card and on the CPU,
+    chunk 16384, on phase 5's inputs: pat counted from the FASTQ, mat
+    from the FASTA, the FASTA as the child."""
+    from yak_tpu_torch import cli
+
+    d = tempfile.mkdtemp(prefix="yak_tpu_torch_smoke_")
+    try:
+        fq, fa = write_inputs(d)
+        yak = {name: os.path.join(d, f"{name}.yak")
+               for name in ("pat", "mat", "k33")}
+        with contextlib.redirect_stderr(io.StringIO()):
+            for name, args in (("pat", ["-k31", fq]), ("mat", ["-k31", fa]),
+                               ("k33", ["-k33", fq])):
+                if cli.main(["count", "-K16384", "--device", "cuda", "-o",
+                             yak[name], *args]) != 0:
+                    raise AssertionError(f"CLI count {name} failed")
+        for cmd in (["triobin", "-p", yak["pat"], yak["mat"], fa],
+                    ["trioeval", "-e", yak["pat"], yak["mat"], fa],
+                    ["qv", "-p", yak["k33"], fa], ["qv", "-p", yak["k33"], fq],
+                    ["chkerr", "-c", "12", yak["k33"], fa],
+                    ["chkerr", "-c", "12", yak["k33"], fq]):
+            outs = {}
+            for devname in ("cuda", "cpu"):
+                buf, err = io.StringIO(), io.StringIO()
+                with contextlib.redirect_stdout(buf), \
+                        contextlib.redirect_stderr(err):
+                    ret = cli.main([cmd[0], "-K16384", "--device", devname,
+                                    *cmd[1:]])
+                if ret != 0:
+                    raise AssertionError(f"CLI {cmd[0]} failed on {devname}:"
+                                         f" {err.getvalue()}")
+                outs[devname] = buf.getvalue()
+            name = " ".join(os.path.basename(a) for a in cmd)
+            if outs["cuda"] != outs["cpu"] or not outs["cuda"]:
+                raise AssertionError(f"{name}: CUDA and CPU stdout differ")
+            log(f"  {name}: CUDA and CPU stdout identical "
+                f"({outs['cuda'].count(chr(10))} lines, md5 "
+                f"{hashlib.md5(outs['cuda'].encode()).hexdigest()[:12]})")
+    finally:
+        for name in os.listdir(d):
+            os.unlink(os.path.join(d, name))
+        os.rmdir(d)
+
+
+def trio_phases(dev, card, count_items, reads, results, by_path):
+    """Phases 17-23."""
+    genome = np.random.default_rng(42).integers(0, 4, GENOME_LEN,
+                                                dtype=np.uint8)
+    d = tempfile.mkdtemp(prefix="yak_tpu_torch_trio_")
+    try:
+        t0 = time.perf_counter()
+        tb_paths = trio_sets(d, genome, (6, *TB_DIGEST))
+        te_paths = trio_sets(d, genome, (16, *TE_DIGEST))
+        small = os.path.join(d, "trio_6_small.fa")
+        rng = np.random.default_rng(6)
+        write_fasta(small, [np.roll(genome, int(r)) for r in
+                            rng.integers(0, GENOME_LEN, TRIO_CONTIGS)[:4]])
+        tb, te = trio_tables(dev, count_items, genome)
+        log(f"  trio inputs and tables made in {time.perf_counter() - t0:.3f}"
+            f" s")
+
+        phase("17. trio lookup kernels vs plain torch on the card")
+        for name, (err, shapes) in trio_kernel_checks(
+                tb, te, {"triobin_small": small, "trioeval": te_paths[16]},
+                card).items():
+            r = results[name]
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            r.setdefault("shapes", {}).update(shapes)
+
+        phase("18. triobin at real size")
+        trio_run("triobin", tb, tb_paths[6], trio_opts())   # warm-up set
+        tb_texts, by_path["triobin"] = trio_gated(
+            "triobin", tb, tb_paths, TB_DIGEST, TB_DIGEST, card, "triobin")
+        check_launched(by_path["triobin"], ("merge_join",), "triobin")
+
+        phase("19. triobin -p at real size")
+        by_path.update(triobin_p_path(tb, tb_paths, tb_texts[7], card))
+
+        phase("20. trioeval at real size")
+        te_texts, by_path["trioeval"] = trio_gated(
+            "trioeval", te, te_paths, TE_DIGEST, TE_DIGEST, card,
+            "trioeval")
+        check_launched(by_path["trioeval"], ("merge_join", "compact"),
+                       "trioeval")
+
+        phase("21. restore-into at real size")
+        restore_into_path(dev, d, count_items, reads, card)
+
+        phase("22. the psort engine on the trio paths")
+        with psort_engine():
+            for cmd, table, paths, seed, gates, texts, needed in (
+                    ("triobin", tb, tb_paths, 7, TB_DIGEST, tb_texts,
+                     ("merge_join", "sort_i64_i32")),
+                    ("trioeval", te, te_paths, 17, TE_DIGEST, te_texts,
+                     ("merge_join", "sort_i64_i32", "sort_i32_i32"))):
+                name = f"psort {cmd}"
+                got, by_path[name] = trio_gated(
+                    cmd, table, paths, (seed,), gates, card, name)
+                check_launched(by_path[name], needed, name)
+                if by_path[name]["compact"]:
+                    raise AssertionError(f"{name} launched the compaction "
+                                         f"kernel")
+                if got[seed] != texts[seed]:
+                    raise AssertionError(f"{name}: output differs")
+    finally:
+        for name in os.listdir(d):
+            os.unlink(os.path.join(d, name))
+        os.rmdir(d)
+
+    phase("23. trio and k=33 lookup CLI on the card vs on the CPU")
+    trio_cli_check()
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on the card",
@@ -1587,6 +2026,7 @@ def main():
 
     phase("9. lookup CLI on the card vs on the CPU")
     lookup_cli_check()
+    count_items = table.items()         # phases 17-21 build on its keys
     del table
 
     d = tempfile.mkdtemp(prefix="yak_tpu_torch_bloom_")
@@ -1648,6 +2088,7 @@ def main():
             os.unlink(os.path.join(d, name))
         os.rmdir(d)
     count_cli_check(psort=True)
+    trio_phases(dev, card, count_items, reads, results, by_path)
     torch.cuda.synchronize()
 
     print(json.dumps({"kernels": [

@@ -155,20 +155,26 @@ def test_state_bridge_roundtrip():
         np.testing.assert_array_equal(a, b)
 
 
-def test_wide_k_not_ported():
-    """What the port still refuses about k: k = 64, and the lookups
-    (qv, chkerr) against a k >= 32 table, which must not run k <= 31
-    extraction against wide keys."""
+def test_wide_k_not_ported(tmp_path):
+    """What the port still refuses about k: k = 64.  The lookups (qv,
+    chkerr) against a k >= 32 table now run, with k >= 32 extraction
+    (tests/test_torch_wide_lookup.py holds them against the JAX
+    package): every window of a sequence is found in the k = 33 table
+    counted from it, once."""
     from yak_tpu_torch.models.chkerr import ChkerrOpts, main_chkerr
-    from yak_tpu_torch.models.qv import QvOpts, main_qv, run_qv
+    from yak_tpu_torch.models.count import CountOpts, count_file
+    from yak_tpu_torch.models.qv import QvOpts, run_qv
 
     with pytest.raises(ValueError, match="63"):
         _table(k=64)
-    t = _table(k=33)
+    seq = np.frombuffer(b"ACGT", np.uint8)[
+        np.random.default_rng(64).integers(0, 4, 300)]
+    fa = tmp_path / "one.fa"
+    fa.write_bytes(b">s\n" + seq.tobytes() + b"\n")
+    t = count_file(str(fa), CountOpts(k=33, device="cpu"))
+    assert t.wide and t.tot == 300 - 33 + 1
+    cnt = run_qv(QvOpts(), str(fa), t, out=io.StringIO())
+    assert int(cnt[1]) == int(cnt.sum()) == 300 - 33 + 1
     out = io.StringIO()
-    for call in (lambda: run_qv(QvOpts(), "unread.fa", t, out=out),
-                 lambda: main_qv(QvOpts(), t, "unread.fa", out=out),
-                 lambda: main_chkerr(ChkerrOpts(), t, "unread.fa", out=out)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
-    assert out.getvalue() == ""
+    main_chkerr(ChkerrOpts(), t, str(fa), out=out)
+    assert out.getvalue() == "s\t0\t300\t268\n"

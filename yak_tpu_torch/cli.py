@@ -2,9 +2,11 @@
 
 Port of `yak_tpu/cli.py` for `count` (with `-b`, `-H` and k in [1, 63];
 `-X`, and YAK_TPU_EXACT_DUMP set to anything, which means `-X` there,
-exit 1 with "not yet ported"), `qv`, `chkerr` and `version`, with
-the same options, messages and footer.  Every other command of the
-reference CLI exits 1 with "not yet ported".
+exit 1 with "not yet ported"), `qv`, `chkerr`, `triobin`, `trioeval`
+(each lookup against tables of any k in [1, 63]) and `version`, with
+the same options, messages and footer.  The other commands of the
+reference CLI (the table algebra, `print`, `inspect`, `sexchr`,
+`groupxy`) exit 1 with "not yet ported".
 
 The device is chosen explicitly: `--device cuda|cuda:N|cpu` anywhere
 on the command line, else `cuda`.  When CUDA is asked for and absent,
@@ -21,7 +23,7 @@ import torch
 from yak_tpu_torch import __version__
 
 _NOT_PORTED = ("recount", "cntasm", "subtract", "isec", "print",
-               "triobin", "trioeval", "inspect", "sexchr", "groupxy")
+               "inspect", "sexchr", "groupxy")
 
 
 def _parse_num(s):
@@ -178,7 +180,51 @@ def main_chkerr(argv, device):
     return 0
 
 
-_COMMANDS = {"count": main_count, "qv": main_qv, "chkerr": main_chkerr}
+def main_triobin(argv, device):
+    from yak_tpu_torch.models.trio import (TrioOpts, load_trio_tables,
+                                           main_triobin as tb)
+    o, pos = _getopt(argv, {"c": 1, "d": 1, "t": 1, "p": 0, "r": 1, "K": 1})
+    opt = TrioOpts()
+    if "c" in o: opt.min_cnt = int(o["c"])
+    if "d" in o: opt.mid_cnt = int(o["d"])
+    if "p" in o: opt.print_diff = True
+    if "r" in o: opt.ratio_thres = float(o["r"])
+    if len(pos) < 3:
+        return _usage(["Usage: yak_tpu_torch triobin [options] <pat.yak> "
+                       "<mat.yak> <seq.fa>"])
+    ch = load_trio_tables(pos[0], pos[1], opt, device)
+    kw = {}
+    if "K" in o: kw["chunk_cap"] = _parse_num(o["K"])
+    tb(opt, ch, pos[2], **kw)
+    return 0
+
+
+def main_trioeval(argv, device):
+    from yak_tpu_torch.models.trio import (TrioOpts, load_trio_tables,
+                                           main_trioeval as te)
+    o, pos = _getopt(argv, {"c": 1, "d": 1, "t": 1, "n": 1, "e": 0,
+                            "F": 0, "K": 1})
+    opt = TrioOpts()
+    kw = {}
+    if "c" in o: opt.min_cnt = int(o["c"])
+    if "d" in o: opt.mid_cnt = int(o["d"])
+    if "n" in o: opt.min_n = int(o["n"])
+    if "e" in o: opt.print_err = True
+    if "F" in o: opt.print_frag = False
+    if "K" in o: kw["chunk_cap"] = _parse_num(o["K"])
+    if len(pos) < 3:
+        return _usage(["Usage: yak_tpu_torch trioeval [options] <pat.yak> "
+                       "<mat.yak> <seq.fa>"])
+    ch = load_trio_tables(pos[0], pos[1], opt, device)
+    cnt = ch.hist()
+    print(f"[M::trioeval] {cnt[0 << 2 | 2]} file1-specific k-mers and "
+          f"{cnt[2 << 2 | 0]} file2-specific k-mers", file=sys.stderr)
+    te(opt, ch, pos[2], **kw)
+    return 0
+
+
+_COMMANDS = {"count": main_count, "qv": main_qv, "chkerr": main_chkerr,
+             "triobin": main_triobin, "trioeval": main_trioeval}
 
 
 def main(argv=None):

@@ -23,11 +23,11 @@ import sys
 from dataclasses import dataclass
 
 import numpy as np
-import torch
 
-from yak_tpu_torch.io.chunks import ChunkSource
 from yak_tpu_torch.io.pack import pack_chunk_planes
 from yak_tpu_torch.ops import countstep
+from yak_tpu_torch.utils import (host_markers, lookup_pipeline, settle,
+                                 to_host_async)
 
 
 @dataclass
@@ -47,7 +47,6 @@ def main_chkerr(opt, table, seq_fn, out=None):
     which stay on the device until the chunk is folded."""
     out = out or sys.stdout
     k = table.k
-    countstep.check_lookup_k(k, "chkerr")
     table.flush()
     dev = table.device
     chunk = max(1 << 14, min(int(opt.chunk_size), 1 << 23))
@@ -64,47 +63,18 @@ def main_chkerr(opt, table, seq_fn, out=None):
                                              psort=psort)
         khi, runlen, n = countstep.chkerr_mark_mid(vals, valid,
                                                    int(opt.min_cnt), M)
-        lanes, lens = mark(khi, runlen)
+        planes = mark(khi, runlen)
         maxr = countstep.CHKERR_MAX_RUNS
-        return (lanes, lens) + _to_host_async((n, lanes[:maxr], lens[:maxr]))
+        return planes, to_host_async((n, planes[0][:maxr], planes[1][:maxr]))
 
-    def produce():
-        pending = []
-        for packed in ChunkSource(seq_fn, chunk, k, with_meta="records"):
-            if not len(packed.rec_gid):
-                continue
-            pending.append((packed, dispatch(packed)))
-            if len(pending) >= 2:
-                yield pending.pop(0)
-        yield from pending
-
-    for packed, (all_lanes, all_lens, n, lanes, lens, ready) in produce():
-        if ready is not None:
-            ready.synchronize()
-        n = int(n)
-        if n > countstep.CHKERR_MAX_RUNS:
-            # marker overflow (low-coverage table vs a large input): the
-            # compacted planes on the device hold every marker
-            lanes, lens = all_lanes[:n].cpu(), all_lens[:n].cpu()
-        fold.chunk(packed, lanes[:n].numpy().astype(np.int64),
-                   lens[:n].numpy().astype(np.int64), M)
+    for packed, (planes, host) in lookup_pipeline(seq_fn, chunk, k,
+                                                  dispatch):
+        # past the budget (a low-coverage table against a large input)
+        # the compacted planes on the device hold every marker
+        lanes, lens = host_markers(planes, *settle(host),
+                                   countstep.CHKERR_MAX_RUNS)
+        fold.chunk(packed, lanes, lens, M)
     fold.finish()
-
-
-def _to_host_async(tensors):
-    """Start copies of `tensors` to pinned host memory on the current
-    stream; returns the host tensors and an event that is done when they
-    are (None for CPU tensors, returned as they are)."""
-    if tensors[0].device.type == "cpu":
-        return tuple(tensors) + (None,)
-    host = []
-    for t in tensors:
-        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-        h.copy_(t, non_blocking=True)
-        host.append(h)
-    ready = torch.cuda.Event()
-    ready.record()
-    return tuple(host) + (ready,)
 
 
 class _ChkerrFold:

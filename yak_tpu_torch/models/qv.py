@@ -121,7 +121,6 @@ def run_qv(opt, fn, table, out=None):
     markers of each chunk."""
     out = out or sys.stdout
     k = table.k
-    countstep.check_lookup_k(k, "qv")
     table.flush()
     dev = table.device
     chunk = max(1 << 14, min(int(opt.chunk_size), 1 << 23))
@@ -423,7 +422,6 @@ QV_HEADER = (
 def main_qv(opt, table, seq_fn, out=None):
     """The `qv` command body (main_qv, main.c:163-215)."""
     out = out or sys.stdout
-    countstep.check_lookup_k(table.k, "qv")
     hist = table.hist()
     out.write(QV_HEADER)
     cnt = run_qv(opt, seq_fn, table, out=out)

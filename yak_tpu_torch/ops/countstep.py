@@ -1,7 +1,7 @@
 """The device steps: the count fold (packed planes -> k-mer hashes ->
 sorted batch -> [Bloom gate ->] merge-reduce into the table) and the
-lookup steps of qv and chkerr (packed planes -> hashes -> sorted
-queries -> merge-JOIN -> per-chunk reduction).
+lookup steps of qv, chkerr, triobin and trioeval (packed planes ->
+hashes -> sorted queries -> merge-JOIN -> per-chunk reduction).
 
 Port of the default count engine of `yak_tpu/ops/countstep.py`
 (`get_count_step_pmerge{,_planes}`, `get_count_wide_step{,_planes}`,
@@ -36,12 +36,17 @@ table and can replay the fold after growing it (`table.KmerTable`).
 
 The lookup steps port `run_join_lookup` with `get_qv_join_pre`, the qv
 reduction (`_qv_chunk_stats`, `_qv_fold_step`, `_qv_reduce`,
-`_qv_ek_markers`, `get_qv_join_post`) and the chkerr marker mid with its
-compaction (`get_chkerr_mark_mid`, `run_mark_compact`).  The JOIN writes
+`_qv_ek_markers`, `get_qv_join_post`), the chkerr marker mid with its
+compaction (`get_chkerr_mark_mid`, `run_mark_compact`), triobin's
+reductions and -p markers (`_triobin_reduce`, `get_triobin_join_post`,
+`get_triobin_psort_mid`) and trioeval's run markers (`_te_emit`,
+`get_trioeval_mark_mid`, `get_trioeval_psort_mid`).  A k >= 32 lookup
+goes through the same JOIN, its queries wide-encoded.  The JOIN writes
 each query's value at its original lane, so `plookup_post`'s order
-restore has no counterpart here.  The reductions are XLA code in the JAX
-package and plain torch here; the compaction is the hand-written kernel
-(`ops/compact.py`).  No step reads a value back to the host.
+restore, `join_restore_vals` and `qv_psort_pad` have no counterpart
+here.  The reductions are XLA code in the JAX package and plain torch
+here; the compaction is the hand-written kernel (`ops/compact.py`).  No
+step reads a value back to the host.
 """
 
 import os
@@ -242,27 +247,22 @@ QV_MAX_EK = 1 << 17          # -E marker budget per chunk
 CHKERR_MAX_RUNS = 1 << 17    # chkerr marker budget per chunk
 
 
-def check_lookup_k(k, command):
-    """The lookup steps JOIN k <= 31 hashes: a k >= 32 table (wide keys)
-    is refused, never looked up with k <= 31 extraction."""
-    if k > 31:
-        raise NotImplementedError(
-            f"{command} against a k={k} table (k >= 32, the wide JOIN) is "
-            f"not yet ported: ROADMAP.md Queue 1, 'wide JOIN'")
-
-
 def lookup_chunk(carg, k, tkeys, tcnt, size, hook=None, psort=False):
     """Per-window table lookup of one chunk: extract, sort the queries
     with their lane index as payload (psort: through the sort kernel),
-    merge-JOIN against the table.  Returns (vals int32 [M], valid bool
-    [M]) in lane order: the count of each valid window's k-mer, -1 where
-    absent; invalid lanes -1.  `hook`, when given, is called with each
-    phase's name as the phase is queued."""
+    merge-JOIN against the table.  k >= 32 queries are wide-encoded, as
+    the table's keys are (0xFF..FF clamped to 0xFF..FE, so INT64_MAX
+    stays the invalid lane; the JAX package looks these up outside its
+    JOIN, by `get_*_step` with `lookup_impl(packable=False)`).  Returns
+    (vals int32 [M], valid bool [M]) in lane order: the count of each
+    valid window's k-mer, -1 where absent; invalid lanes -1.  `hook`,
+    when given, is called with each phase's name as the phase is
+    queued."""
     mark = hook or (lambda _name: None)
     h, valid = extract(carg, k)
     h, valid = h.reshape(-1), valid.reshape(-1)
     mark("extract")
-    keys = torch.where(valid, h, INT64_MAX)
+    keys = torch.where(valid, encode_wide(h) if k > 31 else h, INT64_MAX)
     if psort:
         lane = torch.arange(keys.numel(), dtype=torch.int32,
                             device=keys.device)
@@ -425,3 +425,127 @@ def run_marker_sort(khi, pay):
     run length, one sort through the kernel.  Returns (lanes, payloads)
     int32 [M], the markers first in lane order, as run_mark_compact."""
     return sort.sort(torch.where(khi >= 0, khi, INT32_MAX), pay)
+
+
+# -- trio binning and evaluation -------------------------------------------
+
+TRIOBIN_MAX_DIFF = 1 << 18   # triobin -p marker budget per chunk
+TRIOEVAL_MAX_RUNS = 1 << 17  # trioeval run-marker budget per chunk
+
+
+def trio_types(vals, valid):
+    """The hap-mer typing of a lookup's value stream (countstep._te_emit,
+    _triobin_reduce): flag = the table value where the window is valid
+    (absent counts 0); c1 = flag & 3 is the pat class, c2 = flag >> 2 & 3
+    the mat class; type 1 (pat-strong) where c1 == 2 and c2 == 0, type 2
+    (mat-strong) where c2 == 2 and c1 == 0, else 0.  Returns (flag, typ)
+    int32 [M]."""
+    flag = torch.where(valid, vals.clamp(min=0), 0).to(torch.int32)
+    c1, c2 = flag & 3, (flag >> 2) & 3
+    typ = torch.where(valid & (c1 == 2) & (c2 == 0), 1,
+                      torch.where(valid & (c2 == 2) & (c1 == 0), 2, 0))
+    return flag, typ.to(torch.int32)
+
+
+def last_set_lane(mask):
+    """For each lane i, the last lane j <= i where `mask` is set, else -1
+    (int32 [M]): `torch.cummax(torch.where(mask, lane, -1))`, which
+    the JAX package computes (`jax.lax.cummax`), without torch.cummax,
+    whose CUDA kernel scans a 1-D tensor in one block (22.3 ms against
+    0.54 ms at 8,388,578 lanes on an H100, tools/trio_post_probe.py).
+    The set lanes are numbered by a cumsum, each writes its lane at its
+    number (the other lanes write to 1024 spare slots that nothing
+    reads), and each lane reads back the lane of its number."""
+    n = mask.numel()
+    lane = torch.arange(n, dtype=torch.int32, device=mask.device)
+    num = torch.cumsum(mask, 0, dtype=torch.int32)
+    slot = torch.where(mask, num, n + 1 + (lane & 1023)).to(torch.int64)
+    pos = torch.full((n + 1025,), -1, dtype=torch.int32, device=mask.device)
+    pos.scatter_(0, slot, lane)
+    return pos[num.to(torch.int64)]
+
+
+def _type_runs(typ):
+    """Runs of equal type: (lane, run_start, runlen, is_end) int32/bool
+    [M], run_start the last run head at or before each lane."""
+    lane = torch.arange(typ.numel(), dtype=torch.int32, device=typ.device)
+    fill = typ.new_full((1,), -1)
+    run_start = last_set_lane(typ != torch.cat([fill, typ[:-1]]))
+    is_end = typ != torch.cat([typ[1:], fill])
+    return lane, run_start, lane - run_start + 1, is_end
+
+
+def triobin_reduce(flag, typ, valid, meta, k, M):
+    """tb_worker's per-contig reductions of one chunk
+    (countstep._triobin_reduce, triobin.c:41-101).  meta int32 [ns+2]:
+    the segment bounds [ns+1] (record starts clipped to M, then M), then
+    `we`, the last window of the final piece.
+
+    Eight segment sums by int32 cumsum differences over the bounds
+    clipped to [0, M]: #k-mers, the flag counts c[0], c[1], c[2], c[4],
+    c[8], and the summed lengths of the type-1 and type-2 streaks of at
+    least k-4 windows that touch neither lane 0 nor `we`.  Those two
+    boundary runs come back as scalars [typ[0], head_len, tail_typ,
+    tail_len] for the host to merge across chunk-spanning pieces.
+    Returns int32 [8*ns + 4]: the sums row-major [8, ns], then the four
+    scalars, one tensor for one copy to the host.
+
+    The eight planes take one cumsum over their concatenation, a 1-D
+    scan (torch.cumsum along dim 1 of [8, M] runs a row in one block);
+    each plane's total is at most M, so the whole stays below 2^31, and
+    a sum is a difference within one plane."""
+    bounds, we = meta[:-1], meta[-1]
+    lane, run_start, runlen, is_end = _type_runs(typ)
+    strk = (is_end & (typ > 0) & (runlen >= k - 4) & (run_start > 0)
+            & (lane < we))
+    x = torch.stack([valid] + [valid & (flag == v) for v in (0, 1, 2, 4, 8)]
+                    + [torch.where(strk & (typ == t), runlen, 0)
+                       for t in (1, 2)]).to(torch.int32)
+    cs = _cumsum0(x.reshape(-1))
+    bc = torch.clamp(bounds, 0, M).to(torch.int64)
+    at = (torch.arange(8, dtype=torch.int64, device=bc.device)[:, None] * M
+          + bc[None, :])
+    sums = cs[at[:, 1:]] - cs[at[:, :-1]]
+    at_we = lane == we
+    scalars = torch.stack([typ[0], (run_start == 0).sum(dtype=torch.int32),
+                           torch.where(at_we, typ, 0).sum(dtype=torch.int32),
+                           torch.where(at_we, runlen, 0)
+                           .sum(dtype=torch.int32)])
+    return torch.cat([sums.reshape(-1), scalars])
+
+
+def triobin_diff_mid(flag, valid, M):
+    """triobin -p's markers as planes for the compaction
+    (countstep._triobin_reduce with emit_diff, triobin.c:89-92): each
+    valid window whose pat and mat classes differ keeps its lane in khi
+    and `flag & 15` in the payload (a non-trio table's larger values
+    must not reach the row); every other lane is MARK_DROP.  Returns
+    (khi, payload int32 [M], n int32 [])."""
+    dm = valid & ((flag & 3) != ((flag >> 2) & 3))
+    lane = torch.arange(M, dtype=torch.int32, device=flag.device)
+    return (torch.where(dm, lane, MARK_DROP), flag & 15,
+            dm.sum(dtype=torch.int32))
+
+
+def run_diff_sort(khi, pay):
+    """The psort engine's -p marker step (get_triobin_psort_mid's plane
+    through run_marker_psort1), in place of run_mark_compact: one sort of
+    `lane << 4 | flag` keys, INT32_MAX where khi drops the lane, through
+    the kernel.  Returns (lanes, flags) int32 [M], the markers first in
+    lane order, as run_mark_compact."""
+    keys = sort.sort(torch.where(khi >= 0, (khi << 4) | pay, INT32_MAX))[0]
+    return keys >> 4, keys & 15
+
+
+def trioeval_mark_mid(typ, we, min_n, M):
+    """trioeval's run markers as planes for the compaction
+    (countstep._te_emit with get_trioeval_mark_mid): the last lane of
+    each run of type > 0 that is long enough (>= min_n) or touches lane 0
+    or `we` keeps its lane in khi and `runlen << 2 | typ` in the
+    payload; every other lane is MARK_DROP.  Returns (khi, payload int32
+    [M], n int32 [])."""
+    lane, run_start, runlen, is_end = _type_runs(typ)
+    emit = is_end & (typ > 0) & ((runlen >= min_n) | (run_start == 0)
+                                 | (lane == we))
+    return (torch.where(emit, lane, MARK_DROP), (runlen << 2) | typ,
+            emit.sum(dtype=torch.int32))

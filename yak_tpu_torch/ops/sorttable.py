@@ -2,13 +2,14 @@
 engine and the semantic mirror the merge-reduce kernel is held to.
 
 Port of `yak_tpu/ops/sorttable.py` (make_table, grow, hist,
-compact_where, and merge_batch in ADD mode).  The table is a sorted
-dense array of (key, count) with a live size; a batch merge is a concat
-of the table and batch keys (invalid lanes INT64_MAX), one `torch.sort`
-whose indices tell table lanes from batch lanes, per-run sums and
-table presence read off a prefix sum at run ends, and a compaction sort
-of the survivors.  Semantics are the reference's (htab.c): saturating 10-bit
-counts, create vs increment-only.
+compact_where, and merge_batch in its ADD and OR modes).  The table is
+a sorted dense array of (key, count) with a live size; a batch merge is
+a concat of the table and batch keys (invalid lanes INT64_MAX), one
+`torch.sort` whose indices tell table lanes from batch lanes, per-run
+sums and table presence read off a prefix sum at run ends, and a
+compaction sort of the survivors.  Semantics are the reference's
+(htab.c): saturating 10-bit counts, create vs increment-only, and the
+OR of the load modes' flags (htab.c:449-470) in OR mode.
 
 Keys are any int64 below INT64_MAX: k <= 31 hashes as they are, k >= 32
 hashes wide-encoded (`ops/keys.encode_wide`), whose int64 order is their
@@ -26,6 +27,9 @@ from yak_tpu_torch.ops.keys import INT64_MAX
 # bits [40,63) table-entry count
 _FSHIFT = 40
 _FMASK = (1 << 40) - 1
+
+ADD = 0  # cnt = min(table + sum(batch), max_count)
+OR = 1   # cnt = table | batch (batch keys must be unique within a call)
 
 
 def make_table(cap, device):
@@ -55,9 +59,11 @@ def _shift1(x, fill):
 
 
 def merge_batch(tkeys, tcnt, size, h, add, valid, create=True,
-                max_count=YAK_MAX_COUNT):
-    """Merge a (possibly duplicate-bearing) batch into the table, ADD
-    mode: cnt = min(table + sum(batch adds), max_count).
+                max_count=YAK_MAX_COUNT, mode=ADD):
+    """Merge a batch into the table.  ADD mode: cnt = min(table +
+    sum(batch adds), max_count), the batch may repeat keys.  OR mode:
+    cnt = table | batch value, the batch keys unique (the restore into
+    an existing table, whose `.yak` files hold unique hashes).
 
     h int64 [B] keys (< INT64_MAX), add int [B] weights >= 0, valid
     bool [B].
@@ -66,12 +72,12 @@ def merge_batch(tkeys, tcnt, size, h, add, valid, create=True,
     result is then truncated and the caller must grow and retry)."""
     cap = tkeys.shape[0]
     keys, cnt, new_size, n_new = merge_batch_core(
-        tkeys, tcnt, size, h, add, valid, create, max_count)
+        tkeys, tcnt, size, h, add, valid, create, max_count, mode)
     return keys, cnt, torch.clamp(new_size, max=cap), n_new, new_size > cap
 
 
 def merge_batch_core(tkeys, tcnt, size, h, add, valid, create=True,
-                     max_count=YAK_MAX_COUNT):
+                     max_count=YAK_MAX_COUNT, mode=ADD):
     """merge_batch before its size clamp: returns (tkeys, tcnt, new_size,
     n_new) with new_size counted before truncation to cap, so that
     new_size > cap is the overflow flag.  This is also the plain version
@@ -100,7 +106,10 @@ def merge_batch_core(tkeys, tcnt, size, h, add, valid, create=True,
     Q = torch.cummax(torch.where(end, P, 0), 0).values
     tot = P - _shift1(Q, 0)
     has_table = (tot >> _FSHIFT) > 0
-    outV = torch.clamp(tot & _FMASK, max=max_count).to(torch.int32)
+    if mode == ADD:
+        outV = torch.clamp(tot & _FMASK, max=max_count).to(torch.int32)
+    else:  # OR: a run holds at most one table and one batch lane
+        outV = torch.where(newkey, V, _shift1(V, 0) | V)
 
     if create:
         keep = end

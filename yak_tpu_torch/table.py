@@ -29,11 +29,14 @@ in with YAK_TPU_PSORT=1 or YAK_TPU_ENGINE=psort
 (the batch sort through the sort kernel); the one-fold-late replay
 re-runs a fold on the engine it took.
 
-The lookup workloads (qv, chkerr) read `keys`, `cnt` and `size` after
-`flush` and JOIN their queries against them (`ops/countstep.lookup_chunk`).
+The lookup workloads (qv, chkerr, triobin, trioeval) read `keys`, `cnt`
+and `size` after `flush` and JOIN their queries against them
+(`ops/countstep.lookup_chunk`).  `restore(into=)` ORs a second `.yak`
+file's flags into a table (`load_trio_tables`), through the plain
+sort-merge's OR mode, as the JAX package does in XLA.
 
-Not ported here: the serial-exact Bloom gate of `-X`, the table algebra
-and the OR-merge restore into an existing table (ROADMAP.md Queue 1).
+Not ported here: the serial-exact Bloom gate of `-X` and the table
+algebra (ROADMAP.md Queue 1).
 The TPU package's transient-fault retry (`yak_tpu/table.py:493-502`) is
 deliberately absent: on the card it would hide a fault.
 """
@@ -395,11 +398,36 @@ class KmerTable:
         _log(f"dumped the hash table to file '{path}'")
 
     @classmethod
-    def restore(cls, path, device, mode=YAK_LOAD_ALL, min_cnt=0, mid_cnt=0):
-        """Load a `.yak` file into a new table (yak_ch_restore_core
-        semantics with the load modes' value transforms)."""
+    def restore(cls, path, device, mode=YAK_LOAD_ALL, min_cnt=0, mid_cnt=0,
+                into=None):
+        """Load a `.yak` file (yak_ch_restore_core semantics with the load
+        modes' value transforms) into a new table on `device`, or, with
+        `into`, OR its kept (hash, value) pairs into that table, whose k,
+        pre and device must agree (the trio and sexchr flag tables).
+        The union's capacity is reserved once, then the pairs are
+        OR-merged in chunks of 2^22."""
         k, pre, hashes, counts = yakfmt.restore_yak(path)
         vals, keep = yakfmt.apply_load_mode(counts, mode, min_cnt, mid_cnt)
-        t = cls(k, pre, device=device)
-        t._set_pairs(hashes[keep], vals[keep].astype(np.int32))
+        hashes, vals = hashes[keep], vals[keep].astype(np.int32)
+        if into is None:
+            t = cls(k, pre, device=device)
+            t._set_pairs(hashes, vals)
+            return t
+        t = into
+        if (t.k, t.pre) != (k, pre) or t.device != torch.device(device):
+            raise ValueError(
+                f"{path}: k={k}, pre={pre} on {device} cannot be restored "
+                f"into a table of k={t.k}, pre={t.pre} on {t.device}")
+        t._ensure_capacity(t.tot + len(hashes))
+        chunk = 1 << 22
+        for off in range(0, len(hashes), chunk):
+            h = u64_to_torch(hashes[off:off + chunk], t.device)
+            if t.wide:
+                h = encode_wide(h)
+            add = torch.from_numpy(vals[off:off + chunk]).to(t.device)
+            valid = torch.ones(h.shape, dtype=torch.bool, device=t.device)
+            t.keys, t.cnt, t.size, _, _ = st.merge_batch(
+                t.keys, t.cnt, t.size, h, add, valid, create=True,
+                mode=st.OR)
+        t._tot = int(t.size)
         return t

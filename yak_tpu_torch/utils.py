@@ -1,8 +1,14 @@
 """Progress lines in the reference's `[M::func::real*cpu]` shape
-(count.c:140-141, sys.c)."""
+(count.c:140-141, sys.c), and the lookup workloads' 2-deep pipeline
+with its copies to the host."""
 
 import sys
 import time
+
+import numpy as np
+import torch
+
+from yak_tpu_torch.io.chunks import ChunkSource
 
 
 class Progress:
@@ -19,3 +25,54 @@ class Progress:
         cpu = time.process_time() - self.c0
         print(f"[M::{self.name}::{rt:.3f}*{(cpu / rt if rt else 0):.2f}] "
               f"{msg}", file=sys.stderr)
+
+
+def to_host_async(tensors):
+    """Start copies of `tensors` to pinned host memory on the current
+    stream; returns the host tensors and an event that is done when they
+    are (None for CPU tensors, returned as they are)."""
+    if tensors[0].device.type == "cpu":
+        return tuple(tensors) + (None,)
+    host = []
+    for t in tensors:
+        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        h.copy_(t, non_blocking=True)
+        host.append(h)
+    ready = torch.cuda.Event()
+    ready.record()
+    return tuple(host) + (ready,)
+
+
+def settle(host):
+    """Wait for a to_host_async result; returns its host tensors."""
+    *host, ready = host
+    if ready is not None:
+        ready.synchronize()
+    return host
+
+
+def lookup_pipeline(seq_fn, chunk, k, dispatch):
+    """The lookup workloads' 2-deep dispatch/consume pipeline (the role
+    of kt_pipeline's read/compute overlap): chunk i is queued on the
+    device by `dispatch` before the host folds chunk i-1, whose results
+    were copied to the host behind an event of their own.  Yields
+    (packed, dispatch(packed)) in input order, records-meta chunks with
+    at least one record."""
+    pending = []
+    for packed in ChunkSource(seq_fn, chunk, k, with_meta="records"):
+        if not len(packed.rec_gid):
+            continue
+        pending.append((packed, dispatch(packed)))
+        if len(pending) >= 2:
+            yield pending.pop(0)
+    yield from pending
+
+
+def host_markers(planes, n, a, b, maxr):
+    """A chunk's n markers as int64 numpy arrays: the first `maxr` lanes
+    of the two marker planes were copied ahead (a, b, settled); past the
+    budget all n come from the planes, still on the device."""
+    n = int(n)
+    if n > maxr:
+        a, b = planes[0][:n].cpu(), planes[1][:n].cpu()
+    return a[:n].numpy().astype(np.int64), b[:n].numpy().astype(np.int64)
