@@ -145,7 +145,36 @@ Phases, in order; any failure exits non-zero:
  23. the CLI's triobin -p and trioeval -e (pat counted from phase 5's
      FASTQ, mat from its FASTA, the FASTA as the child) and qv -p and
      chkerr -c 12 against a table counted with -k33, chunk 16384, on the
-     card and on the CPU in this process: byte-identical stdout.
+     card and on the CPU in this process: byte-identical stdout;
+ 24. the table algebra and print at real size: phase 4's table (a.yak)
+     and the -b24 table (phase 4's counts >= 2, bench.py's bloom gates;
+     b24.yak) restored on the card; subtract and isec of the first by
+     the second (one JOIN of its 2^23 lanes with the identity as their
+     lanes; 4,181,874 and 2,044,839 keys and the dumps' md5s); recount
+     of a.yak over the reads phase 4 counted as one-line FASTA (phase
+     4's gates) and of phase 11's k=33 table likewise (phase 11's
+     gates), increment-only folds; cntasm -c1 -x1 through the CLI of
+     three assemblies of the genome (20 x 100 kbp; no substitution, one
+     every 2 kbp, one every 1.5 kbp at other offsets; the dump's md5);
+     print -c of a.yak through the CLI (6,226,713 lines, md5); the JOIN
+     and count-mode calls held against their plain versions, and timed
+     at subtract's JOIN, a recount fold and a presence vote;
+ 25. inspect of a.yak alone (host) and against b24.yak on the card, in
+     two 2^22-key batches (stdout md5s), the JOIN calls checked;
+ 26. sexchr at real size: chrY, chrX and PAR tables counted at k=31
+     from the genome's [0, 300 kb), [300 kb, 1.3 Mb) and [1.3, 1.4 Mb),
+     loaded with the SEXCHR1/2/3 modes; hap1 and hap2 the rotation sets
+     of trio seeds 7 and 8 cut into 100 kbp contigs (six 2^23-base
+     chunks each); the md5 of its stdout and of groupxy's lines on it;
+ 27. recount (both tables), two-table inspect and sexchr under
+     YAK_TPU_PSORT=1: the same gates, the sort kernel launched;
+ 28. recount, cntasm, subtract, isec, print -c, inspect (one and two
+     tables), sexchr and groupxy through the CLI on the card and on the
+     CPU in this process, chunk 16384, on phase 5's inputs: byte-identical
+     stdout and dumps.
+
+The md5 gates of phases 24-26 (ALGEBRA_DIGEST) are what `yak_tpu`
+prints on the CPU for the same seeded inputs (tools/algebra_gates.py).
 
 The last two lines of stdout are a JSON line of per-kernel results
 (`launches` summed over the paths that drive the kernel, each with the
@@ -162,7 +191,9 @@ coalesce; the compaction's top-level times are chkerr's call, and
 `shapes` gives the times, bound and library time of each timed shape:
 chkerr, the -b24 sentinel post (phase 13), the dense input, and the
 trio paths' calls (phase 17: `triobin_diff`, `trioeval`); the JOIN's
-and the sorts' `shapes` give their trio calls likewise) and the
+and the sorts' `shapes` give their trio calls likewise, the JOIN's also
+subtract's call (phase 24), and the count mode's a recount fold and a
+cntasm presence vote) and the
 contract line
 {"ok": true, "device": {...}}.  Imports no JAX.
 """
@@ -324,20 +355,21 @@ class _Spy:
 
 
 @contextlib.contextmanager
-def captured(module_attr, name):
-    """Inside the block, ops.countstep's calls of <module_attr>.<name>
-    are recorded; yields the list of their (args, kwargs).  The
-    wrappers never write into their inputs, so the arguments stay valid
-    after the calls."""
-    from yak_tpu_torch.ops import countstep
+def captured(module_attr, name, within="yak_tpu_torch.ops.countstep"):
+    """Inside the block, the calls of <module_attr>.<name> made by the
+    module `within` (ops.countstep unless named) are recorded; yields
+    the list of their (args, kwargs).  The wrappers never write into
+    their inputs, so the arguments stay valid after the calls."""
+    import importlib
 
-    module = getattr(countstep, module_attr)
+    user = importlib.import_module(within)
+    module = getattr(user, module_attr)
     spy = _Spy(module, name)
-    setattr(countstep, module_attr, spy)
+    setattr(user, module_attr, spy)
     try:
         yield spy.calls
     finally:
-        setattr(countstep, module_attr, module)
+        setattr(user, module_attr, module)
 
 
 def fold_inputs(chunks, dev):
@@ -1619,12 +1651,14 @@ def trio_opts(**kw):
     return TrioOpts(**kw)
 
 
-class _TrioTimeline:
-    """Stands in for ops.countstep inside models.trio: marks each chunk's
-    phases with a CUDA event and the host clock ("start" as the lookup
-    is queued, then "extract", "sort", "join", "post" after the typing
-    and the reduction or the marker mid, "markers" after the compaction
-    or the marker sort)."""
+class _LookupTimeline:
+    """Stands in for ops.countstep inside models.trio, models.scan and
+    models.sexchr, or the table module: marks each chunk's phases with a
+    CUDA event and the host clock ("start" as the lookup is queued, then
+    "extract", "sort", "join", "post" after the typing and the reduction,
+    the marker mid or sexchr's sums, "markers" after the compaction or
+    the marker sort); a batch of raw hashes (lookup_keys) is marked
+    "start", "sort", "join"."""
 
     def __init__(self, countstep):
         self.countstep, self.marks = countstep, []
@@ -1632,7 +1666,8 @@ class _TrioTimeline:
     def __getattr__(self, attr):
         fn = getattr(self.countstep, attr)
         name = {"triobin_reduce": "post", "trioeval_mark_mid": "post",
-                "run_mark_compact": "markers", "run_marker_sort": "markers",
+                "sexchr_reduce": "post", "run_mark_compact": "markers",
+                "run_marker_sort": "markers",
                 "run_diff_sort": "markers"}.get(attr)
         if name is None:
             return fn
@@ -1651,6 +1686,10 @@ class _TrioTimeline:
     def lookup_chunk(self, *args, **kw):
         self.mark("start")
         return self.countstep.lookup_chunk(*args, hook=self.mark, **kw)
+
+    def lookup_keys(self, *args, **kw):
+        self.mark("start")
+        return self.countstep.lookup_keys(*args, mark=self.mark, **kw)
 
 
 class _Sink:
@@ -1679,7 +1718,7 @@ def trio_run(cmd, table, path, opt, timeline=False):
     from yak_tpu_torch.models import trio
 
     sink = _Sink()
-    tl = _TrioTimeline(trio.countstep)
+    tl = _LookupTimeline(trio.countstep)
     if timeline:
         trio.countstep = tl
     fn = trio.main_triobin if cmd == "triobin" else trio.main_trioeval
@@ -1966,6 +2005,477 @@ def trio_phases(dev, card, count_items, reads, results, by_path):
     trio_cli_check()
 
 
+# -- phases 24-28: the table algebra, print, inspect, sexchr, groupxy ----
+
+ISEC_DISTINCT = BLOOM_DISTINCT       # isec by the -b24 table keeps its keys
+SUBTRACT_DISTINCT = TOTAL_GATE - BLOOM_DISTINCT      # 4,181,874
+SEXCHR_REGIONS = {"chrY": (0, 300_000), "chrX": (300_000, 1_300_000),
+                  "PAR": (1_300_000, 1_400_000)}
+SEXCHR_SEEDS = (7, 8)                # hap1, hap2: trio_sets' rotation sets
+ASM_SUBS = ((0, 0), (2_000, 1_000), (1_500, 700))   # (every, offset) a file
+# md5[:12] of each output, as `yak_tpu` prints it on the CPU for the same
+# seeded inputs (tools/algebra_gates.py)
+ALGEBRA_DIGEST = {"subtract": "b9609b6779e6", "isec": "864f158dde17",
+                  "cntasm": "86aa85c861d1", "print": "1eed1bf68596",
+                  "inspect": "ecaee28d02e1", "inspect2": "36d6ae9f28e6",
+                  "sexchr": "44a7eb378f20", "groupxy": "ca6447e15ff6"}
+
+
+class _Digest:
+    """A stdout that keeps only the md5 of its bytes and their lines."""
+
+    def __init__(self):
+        self.md5, self.lines = hashlib.md5(), 0
+
+    def write(self, s):
+        self.md5.update(s.encode())
+        self.lines += s.count("\n")
+
+    def digest(self):
+        return self.md5.hexdigest()[:12]
+
+
+def file_md5(path):
+    with open(path, "rb") as f:
+        return hashlib.md5(f.read()).hexdigest()[:12]
+
+
+def check_digest(name, got):
+    if got != ALGEBRA_DIGEST[name]:
+        raise AssertionError(f"{name}: md5 {got} != {ALGEBRA_DIGEST[name]}")
+
+
+def algebra_files(d, genome, reads):
+    """The sequence inputs of phases 24-27 (numpy only; also what
+    tools/algebra_gates.py gives `yak_tpu`): the reads phase 4 counted
+    as one-line FASTA; three assemblies, the genome as 20 contigs of
+    100 kbp with no substitution, one every 2 kbp from base 1000, and
+    one every 1.5 kbp from base 700; the chrY, chrX and PAR stretches of
+    the genome (SEXCHR_REGIONS); and hap1 and hap2, the rotation sets of
+    trio seeds 7 and 8 (24 rotations of the genome a set) cut into
+    contigs of 100 kbp, which span the 2^23-base chunks."""
+    paths = {"reads": os.path.join(d, "reads.fa")}
+    write_fasta(paths["reads"], reads)
+    for i, (every, offset) in enumerate(ASM_SUBS):
+        g = genome.copy()
+        if every:
+            rng = np.random.default_rng(60 + i)
+            pos = np.arange(offset, GENOME_LEN, every)
+            g[pos] = (g[pos] + rng.integers(1, 4, len(pos))) % 4
+        paths[f"asm{i}"] = os.path.join(d, f"asm{i}.fa")
+        write_fasta(paths[f"asm{i}"], np.split(g, N_CONTIGS),
+                    [b"asm%d_%d" % (i, j) for j in range(N_CONTIGS)])
+    for name, (a, b) in SEXCHR_REGIONS.items():
+        paths[name] = os.path.join(d, f"{name}.fa")
+        write_fasta(paths[name], [genome[a:b]], [name.encode()])
+    for hap, seed in enumerate(SEXCHR_SEEDS, start=1):
+        rng = np.random.default_rng(seed)
+        rot = [np.roll(genome, int(r))
+               for r in rng.integers(0, GENOME_LEN, TRIO_CONTIGS)]
+        paths[f"hap{hap}"] = os.path.join(d, f"hap{hap}.fa")
+        write_fasta(paths[f"hap{hap}"],
+                    [c for g in rot for c in np.split(g, N_CONTIGS)],
+                    [b"h%d_s%d_%d" % (hap, i, j)
+                     for i in range(TRIO_CONTIGS) for j in range(N_CONTIGS)])
+    return paths
+
+
+def algebra_tables(dev, d, count_items, paths):
+    """The `.yak` inputs, made on the card: phase 4's table (a.yak); the
+    -b24 table (b24.yak), by the same-file shortcut's definition phase
+    4's table shrunk to counts in [2, 1023], under bench.py's bloom
+    gates; and the chrY, chrX and PAR tables counted at k=31."""
+    from yak_tpu_torch.io.yakfmt import dump_yak
+    from yak_tpu_torch.models.count import CountOpts, count_file
+    from yak_tpu_torch.table import KmerTable
+
+    paths["a"], paths["b24"] = (os.path.join(d, "a.yak"),
+                                os.path.join(d, "b24.yak"))
+    dump_yak(paths["a"], K, 10, *count_items)
+    b24 = KmerTable(K, device=dev)
+    b24._set_pairs(*count_items)
+    b24.shrink(2, 1023)
+    check_gates(b24, "the -b24 table (phase 4's, counts >= 2)",
+                BLOOM_DISTINCT, BLOOM_HIST)
+    with contextlib.redirect_stderr(io.StringIO()):
+        b24.dump(paths["b24"])
+        for name in SEXCHR_REGIONS:
+            paths[f"{name}.yak"] = os.path.join(d, f"{name}.yak")
+            count_file(paths[name], CountOpts(k=K, chunk_size=1 << 23,
+                                              device=str(dev))).dump(
+                paths[f"{name}.yak"])
+
+
+def timed_op(fn):
+    """(fn's result, wall s, device span ms): CUDA events and the host
+    clock around fn, synchronized."""
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    w0 = time.perf_counter()
+    t0.record()
+    out = fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - w0, t0.elapsed_time(t1)
+
+
+def check_joins(calls, label):
+    """Kernel vs plain on every captured JOIN call; returns the max abs
+    error."""
+    err = 0
+    for i, (args, _kw) in enumerate(calls):
+        err = max(err, check_join(args, f"{label} JOIN {i}"))
+    log(f"  {label}: kernel == plain on {len(calls)} captured JOIN calls")
+    return err
+
+
+def time_merge_call(call, label, card):
+    """A kernels-line entry (time_merge) for one captured count-mode
+    merge-reduce call, positional or keyword create."""
+    from yak_tpu_torch.ops import merge
+
+    args, kw = call
+    create = kw.get("create", args[4] if len(args) > 4 else True)
+    ms, device_ms, plain_ms, plain_device_ms, bound = time_merge(
+        merge, tuple(args[:4]) + (create,), {"wide": kw.get("wide", False)},
+        f"{label} [{card}]")
+    return {"max_abs_err": 0, "ms": ms, "plain_ms": plain_ms,
+            "device_ms": device_ms, "plain_device_ms": plain_device_ms,
+            "bound_ms": bound, "bound_by": "bytes", "library_ms": None}
+
+
+def check_merges(calls, label):
+    """Kernel vs plain on every captured count-mode merge-reduce call
+    (positional create, or the create= keyword); returns the max abs
+    error."""
+    from yak_tpu_torch.ops import merge
+
+    err = 0
+    for i, (args, kw) in enumerate(calls):
+        create = kw.get("create", args[4] if len(args) > 4 else True)
+        err = max(err, compare(merge, args[:4], create, f"{label} merge {i}",
+                               wide=kw.get("wide", False)))
+    return err
+
+
+def membership_paths(dev, card, paths, results, by_path):
+    """Phase 24, subtract and isec: phase 4's table restored on the card,
+    filtered by the -b24 table: one JOIN of its 2^23 lanes with the
+    identity as their lanes, then the compaction; counts and dump md5s
+    gated.  The JOIN is checked against its plain version on the calls
+    and timed at the call of subtract."""
+    from yak_tpu_torch.ops import merge
+    from yak_tpu_torch.table import KmerTable
+
+    other = KmerTable.restore(paths["b24"], dev)
+    for op, want in (("subtract", SUBTRACT_DISTINCT),
+                     ("isec", ISEC_DISTINCT)):
+        t = KmerTable.restore(paths["a"], dev)
+        reset_counts()
+        with captured("merge", "merge_join",
+                      within="yak_tpu_torch.table") as js:
+            _, wall, span = timed_op(lambda: getattr(t, op)(other))
+        by_path[op] = read_counts()
+        check_launched(by_path[op], ("merge_join",), op)
+        out = os.path.join(os.path.dirname(paths["a"]), f"{op}.yak")
+        with contextlib.redirect_stderr(io.StringIO()):
+            t.dump(out)
+        md5 = file_md5(out)
+        log(f"  {op}: {t.tot} keys (want {want}), dump md5 {md5}; wall "
+            f"{wall:.4f} s, device span {span:.4f} ms [{card}]")
+        if t.tot != want:
+            raise AssertionError(f"{op}: {t.tot} keys != {want}")
+        check_digest(op, md5)
+        r = results["merge_join"]
+        r["max_abs_err"] = max(r["max_abs_err"], check_joins(js, op))
+        if op == "subtract":
+            args = js[0][0]
+            live, nq = int(args[2]), args[3].numel()
+            r.setdefault("shapes", {})["subtract"] = time_kernel(
+                merge.merge_join, merge.merge_join_plain, args,
+                (12 * live + 16 * nq) / HBM_BYTES_PER_S * 1e3, None,
+                f"JOIN at subtract's call (cap {args[0].numel()}, live "
+                f"{live}, {args[3].numel()} queries in their order)", card)
+        del t
+
+
+def recount_paths(dev, card, paths, chunks, results, by_path, psort=False):
+    """Phase 24 (and 27 under psort), recount: phase 4's table restored,
+    recounted over the reads it was counted from (the k=31 gates), and
+    phase 11's k=33 table likewise (the k=33 gates); increment-only
+    folds (count mode with create=False, the wide mode at k=33), each
+    fold's split on the device timeline.  The count-mode calls are
+    checked against their plain version."""
+    from yak_tpu_torch.models.count import recount
+    from yak_tpu_torch.table import KmerTable
+
+    k33 = os.path.join(os.path.dirname(paths["a"]), "k33.yak")
+    if not os.path.exists(k33):
+        with contextlib.redirect_stderr(io.StringIO()):
+            run_count(chunks, dev, k=K33).dump(k33)
+    name = "psort recount" if psort else "recount"
+    for label, src, total, digest, needed in (
+            (name, paths["a"], TOTAL_GATE, HIST_GATE,
+             ("sort_i64",) if psort else ("merge_reduce",)),
+            (f"{name} k33", k33, K33_DISTINCT, K33_HIST,
+             ("merge_reduce_wide",) + (("sort_i64",) if psort else ()))):
+        t = KmerTable.restore(src, dev)
+        reset_counts()
+        with fold_timeline() as tl, captured("merge", "merge_reduce") as ms:
+            _, wall, _span = timed_op(lambda: recount(paths["reads"], t))
+        by_path[label] = read_counts()
+        check_gates(t, f"{label}: wall {wall:.4f} s [{card}]", total, digest)
+        check_launched(by_path[label], needed, label)
+        fold_split(tl.marks, wall, card, label)
+        if any(c[0][4] for c in ms):
+            raise AssertionError(f"{label} created keys")
+        if not psort and label == "recount":
+            r = results["merge_reduce"]
+            r["max_abs_err"] = max(r["max_abs_err"], check_merges(ms, label))
+            r.setdefault("shapes", {})["recount"] = time_merge_call(
+                ms[0], "recount fold 0", card)
+        del t
+
+
+def cntasm_path(card, paths, results, by_path):
+    """Phase 24, cntasm -c1 -x1 of the three assemblies through the CLI
+    entry point on the card: each file counted, then folded in as
+    presence votes (the count-mode merge of its keys counted once);
+    the dump's md5 gated, the vote merges checked against their plain
+    version."""
+    from yak_tpu_torch import cli
+
+    out = os.path.join(os.path.dirname(paths["a"]), "cntasm.yak")
+    err = io.StringIO()
+    reset_counts()
+    with fold_timeline() as tl, \
+            captured("merge", "merge_reduce", within="yak_tpu_torch.table") \
+            as votes, contextlib.redirect_stderr(err):
+        ret, wall, _span = timed_op(lambda: cli.main(
+            ["cntasm", "-c1", "-x1", "-o", out, "--device", "cuda",
+             *(paths[f"asm{i}"] for i in range(len(ASM_SUBS)))]))
+    by_path["cntasm"] = read_counts()
+    if ret != 0:
+        raise AssertionError(f"cntasm failed: {err.getvalue()[-2000:]}")
+    log("  " + " / ".join(r for r in err.getvalue().splitlines()
+                          if r.startswith("[M::cntasm]")))
+    md5 = file_md5(out)
+    log(f"  cntasm -c1 -x1 of {len(ASM_SUBS)} assemblies: dump md5 {md5}; "
+        f"wall {wall:.4f} s [{card}]")
+    check_digest("cntasm", md5)
+    check_launched(by_path["cntasm"], ("merge_reduce",), "cntasm")
+    fold_split(tl.marks, wall, card, "cntasm (its count folds)")
+    if len(votes) != len(ASM_SUBS) - 1:
+        raise AssertionError(f"cntasm: {len(votes)} vote merges")
+    r = results["merge_reduce"]
+    r["max_abs_err"] = max(r["max_abs_err"], check_merges(votes, "cntasm"))
+    r.setdefault("shapes", {})["cntasm_vote"] = time_merge_call(
+        votes[-1], "cntasm presence vote 1", card)
+
+
+def print_path(card, paths):
+    """Phase 24, print -c of phase 4's table through the CLI entry point
+    (host work: the hashes inverted, the lines built a block at a
+    time): its lines and md5 gated."""
+    from yak_tpu_torch import cli
+
+    sink = _Digest()
+    with contextlib.redirect_stdout(sink), \
+            contextlib.redirect_stderr(io.StringIO()):
+        ret, wall, _span = timed_op(lambda: cli.main(
+            ["print", "-c", paths["a"], "--device", "cuda"]))
+    log(f"  print -c: {sink.lines} lines, md5 {sink.digest()}; wall "
+        f"{wall:.4f} s [{card}]")
+    if ret != 0 or sink.lines != TOTAL_GATE:
+        raise AssertionError(f"print -c: exit {ret}, {sink.lines} lines")
+    check_digest("print", sink.digest())
+
+
+def inspect_path(dev, card, paths, results, by_path, psort=False):
+    """Phase 25 (and 27 under psort): inspect of phase 4's table alone
+    (host), then against the -b24 table on the card, the first streamed
+    in two 2^22-key batches, each sorted and JOINed (under psort the
+    query sort through the sort kernel); md5s gated, the per-batch split
+    on the device timeline, the JOIN calls checked."""
+    from yak_tpu_torch import table as table_mod
+    from yak_tpu_torch.models.inspect import main_inspect
+
+    if not psort:
+        sink = _Digest()
+        _, wall, _span = timed_op(lambda: main_inspect(paths["a"], None,
+                                                       out=sink))
+        log(f"  inspect a.yak: {sink.lines} lines, md5 {sink.digest()}; "
+            f"wall {wall:.4f} s (host)")
+        check_digest("inspect", sink.digest())
+    name = "psort inspect" if psort else "inspect"
+    sink = _Digest()
+    tl = _LookupTimeline(table_mod.countstep)
+    table_mod.countstep = tl
+    reset_counts()
+    try:
+        # qv_solve's warnings (low coverage) go to stderr, as in yak_tpu
+        with captured("merge", "merge_join") as js, \
+                contextlib.redirect_stderr(io.StringIO()):
+            _, wall, _span = timed_op(lambda: main_inspect(
+                paths["a"], paths["b24"], out=sink, device=dev))
+    finally:
+        table_mod.countstep = tl.countstep
+    by_path[name] = read_counts()
+    log(f"  {name} a.yak b24.yak: {sink.lines} lines, md5 "
+        f"{sink.digest()}; wall {wall:.4f} s [{card}]")
+    check_digest("inspect2", sink.digest())
+    check_launched(by_path[name], ("merge_join",) + (
+        ("sort_i64_i32",) if psort else ()), name)
+    busy, _ = split_chunks(tl.marks, card)
+    log(f"  {name}: device busy {busy:.4f} ms of {wall * 1e3:.4f} ms wall, "
+        f"idle {1 - busy / (wall * 1e3):.4f} [{card}]")
+    if len(js) != 2:
+        raise AssertionError(f"{name}: {len(js)} JOINs, want 2 batches")
+    r = results["merge_join"]
+    r["max_abs_err"] = max(r["max_abs_err"], check_joins(js, name))
+
+
+def sexchr_path(dev, card, paths, results, by_path, psort=False):
+    """Phase 26 (and 27 under psort): the chrY, chrX and PAR tables
+    loaded as bits 1, 2, 4, then sexchr of hap1 and hap2 (six 2^23-base
+    chunks each) and groupxy of its output; both md5s gated, the
+    per-chunk split on the device timeline, the JOIN calls checked."""
+    from yak_tpu_torch.models import scan, sexchr
+
+    ch, wall, _span = timed_op(lambda: sexchr.load_sexchr_tables(
+        *(paths[f"{n}.yak"] for n in SEXCHR_REGIONS), dev))
+    log(f"  load_sexchr_tables: {ch.tot} keys in {wall:.4f} s [{card}]")
+    name = "psort sexchr" if psort else "sexchr"
+    buf = io.StringIO()
+    tl = _LookupTimeline(scan.countstep)
+    scan.countstep = sexchr.countstep = tl
+    reset_counts()
+    try:
+        with captured("merge", "merge_join") as js:
+            _, wall, _span = timed_op(lambda: sexchr.main_sexchr(
+                sexchr.SexchrOpts(), ch, [paths["hap1"], paths["hap2"]],
+                out=buf))
+    finally:
+        scan.countstep = sexchr.countstep = tl.countstep
+    by_path[name] = read_counts()
+    text = buf.getvalue()
+    md5 = hashlib.md5(text.encode()).hexdigest()[:12]
+    npos = 2 * TRIO_CONTIGS * (GENOME_LEN - N_CONTIGS * (K - 1))
+    log(f"  {name}: {text.count(chr(10))} lines, md5 {md5}; wall "
+        f"{wall:.4f} s, {npos / wall:.1f} positions/s [{card}]")
+    check_digest("sexchr", md5)
+    check_launched(by_path[name], ("merge_join",) + (
+        ("sort_i64_i32",) if psort else ()), name)
+    busy, _ = split_chunks(tl.marks, card)
+    log(f"  {name}: device busy {busy:.4f} ms of {wall * 1e3:.4f} ms wall, "
+        f"idle {1 - busy / (wall * 1e3):.4f} [{card}]")
+    r = results["merge_join"]
+    r["max_abs_err"] = max(r["max_abs_err"], check_joins(js[:2], name))
+    if not psort:
+        lines = sexchr.groupxy(io.StringIO(text))
+        gx = hashlib.md5("".join(f"{x}\n" for x in lines).encode())
+        log(f"  groupxy: {len(lines)} rows, md5 {gx.hexdigest()[:12]}, "
+            f"column 4 " + ", ".join(
+                f"{v}: {sum(x.split(chr(9))[3] == v for x in lines)}"
+                for v in ("1", "2")))
+        check_digest("groupxy", gx.hexdigest()[:12])
+
+
+def algebra_cli_check():
+    """Phase 28: recount, cntasm, subtract, isec, print -c, inspect (one
+    and two tables), sexchr and groupxy through the CLI entry point on
+    the card and on the CPU, chunk 16384, on phase 5's inputs (tables
+    counted on the card from the FASTQ and the FASTA): byte-identical
+    stdout and dumps."""
+    from yak_tpu_torch import cli
+
+    d = tempfile.mkdtemp(prefix="yak_tpu_torch_smoke_")
+    try:
+        fq, fa = write_inputs(d)
+        A, B = os.path.join(d, "a.yak"), os.path.join(d, "b.yak")
+        with contextlib.redirect_stderr(io.StringIO()):
+            for out, src in ((A, fq), (B, fa)):
+                if cli.main(["count", "-K16384", "--device", "cuda", "-o",
+                             out, src]) != 0:
+                    raise AssertionError("CLI count failed")
+        sx = os.path.join(d, "sexchr.txt")
+        for cmd in (["recount", "-o", "@", A, fa],
+                    ["cntasm", "-K16384", "-o", "@", fa, fq],
+                    ["subtract", "-o", "@", A, B], ["isec", "-o", "@", A, B],
+                    ["print", "-c", B], ["inspect", A], ["inspect", A, B],
+                    ["sexchr", "-K16384", A, B, A, fa, fq], ["groupxy", sx]):
+            outs = {}
+            for devname in ("cuda", "cpu"):
+                dump = os.path.join(d, f"out.{devname}.yak")
+                buf, err = io.StringIO(), io.StringIO()
+                with contextlib.redirect_stdout(buf), \
+                        contextlib.redirect_stderr(err):
+                    ret = cli.main([dump if a == "@" else a for a in cmd]
+                                   + ["--device", devname])
+                if ret != 0:
+                    raise AssertionError(f"CLI {cmd[0]} failed on {devname}:"
+                                         f" {err.getvalue()[-2000:]}")
+                raw = b""
+                if "@" in cmd:
+                    with open(dump, "rb") as f:
+                        raw = f.read()
+                outs[devname] = buf.getvalue().encode() + raw
+            name = " ".join(os.path.basename(a) for a in cmd)
+            if outs["cuda"] != outs["cpu"] or not outs["cuda"]:
+                raise AssertionError(f"{name}: CUDA and CPU outputs differ")
+            if cmd[0] == "sexchr":
+                with open(sx, "wb") as f:
+                    f.write(outs["cuda"])
+            log(f"  {name}: CUDA and CPU outputs identical "
+                f"({len(outs['cuda'])} bytes, md5 "
+                f"{hashlib.md5(outs['cuda']).hexdigest()[:12]})")
+    finally:
+        for name in os.listdir(d):
+            os.unlink(os.path.join(d, name))
+        os.rmdir(d)
+
+
+def algebra_phases(dev, card, count_items, reads, chunks, results, by_path):
+    """Phases 24-28."""
+    genome = np.random.default_rng(42).integers(0, 4, GENOME_LEN,
+                                                dtype=np.uint8)
+    d = tempfile.mkdtemp(prefix="yak_tpu_torch_algebra_")
+    try:
+        t0 = time.perf_counter()
+        paths = algebra_files(d, genome, reads)
+        algebra_tables(dev, d, count_items, paths)
+        log(f"  algebra inputs and tables made in "
+            f"{time.perf_counter() - t0:.3f} s")
+
+        phase("24. table algebra and print at real size")
+        membership_paths(dev, card, paths, results, by_path)
+        recount_paths(dev, card, paths, chunks, results, by_path)
+        cntasm_path(card, paths, results, by_path)
+        print_path(card, paths)
+
+        phase("25. inspect at real size")
+        inspect_path(dev, card, paths, results, by_path)
+
+        phase("26. sexchr and groupxy at real size")
+        sexchr_path(dev, card, paths, results, by_path)
+
+        phase("27. the psort engine on recount, inspect and sexchr")
+        with psort_engine():
+            recount_paths(dev, card, paths, chunks, results, by_path,
+                          psort=True)
+            inspect_path(dev, card, paths, results, by_path, psort=True)
+            sexchr_path(dev, card, paths, results, by_path, psort=True)
+    finally:
+        for name in os.listdir(d):
+            os.unlink(os.path.join(d, name))
+        os.rmdir(d)
+
+    phase("28. the algebra, print, inspect, sexchr and groupxy CLI on the "
+          "card vs on the CPU")
+    algebra_cli_check()
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on the card",
@@ -2089,6 +2599,7 @@ def main():
         os.rmdir(d)
     count_cli_check(psort=True)
     trio_phases(dev, card, count_items, reads, results, by_path)
+    algebra_phases(dev, card, count_items, reads, chunks, results, by_path)
     torch.cuda.synchronize()
 
     print(json.dumps({"kernels": [

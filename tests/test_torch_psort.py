@@ -343,12 +343,12 @@ def test_engine_var_takes_k31_folds_only(env, sort_spy, read_sets,
     # -b20 over two files of 700 reads at chunk 16384: one gated fold in
     # pass 1, one fold in pass 2
     assert sort_spy["sort"] == ["i64", "i64"]
-    assert {"lookup_chunk", "qv_chunk_stats"} <= set(sort_spy["torch"])
+    assert {"lookup_keys", "qv_chunk_stats"} <= set(sort_spy["torch"])
 
 
 def test_default_engine_never_calls_sort(env, sort_spy, read_sets,
                                          lookup_inputs):
     _port_runs(read_sets, lookup_inputs)
     assert sort_spy["sort"] == []
-    assert {"sort_batch", "lookup_chunk", "qv_chunk_stats",
+    assert {"sort_batch", "lookup_keys", "qv_chunk_stats",
             "bloom_gate_sentinel_post"} <= set(sort_spy["torch"])

@@ -1,12 +1,13 @@
 """Command-line interface: `python -m yak_tpu_torch <command> [options]`.
 
-Port of `yak_tpu/cli.py` for `count` (with `-b`, `-H` and k in [1, 63];
-`-X`, and YAK_TPU_EXACT_DUMP set to anything, which means `-X` there,
-exit 1 with "not yet ported"), `qv`, `chkerr`, `triobin`, `trioeval`
-(each lookup against tables of any k in [1, 63]) and `version`, with
-the same options, messages and footer.  The other commands of the
-reference CLI (the table algebra, `print`, `inspect`, `sexchr`,
-`groupxy`) exit 1 with "not yet ported".
+Port of `yak_tpu/cli.py`: all 13 commands and `groupxy`, with the same
+options, messages and footer (naming yak_tpu_torch).  `count` takes
+`-b`, `-H` and k in [1, 63]; `count -X`, and YAK_TPU_EXACT_DUMP set to
+anything, which means `-X` there, exit 1 with "not yet ported".  The
+lookups (`qv`, `chkerr`, `triobin`, `trioeval`, `inspect`, `sexchr`)
+and `recount`, `subtract` and `isec` take tables of any k in [1, 63];
+`cntasm` refuses k >= 32 and `print` exits 1 on such a table, as in the
+JAX package.
 
 The device is chosen explicitly: `--device cuda|cuda:N|cpu` anywhere
 on the command line, else `cuda`.  When CUDA is asked for and absent,
@@ -18,12 +19,10 @@ import resource
 import sys
 import time
 
+import numpy as np
 import torch
 
 from yak_tpu_torch import __version__
-
-_NOT_PORTED = ("recount", "cntasm", "subtract", "isec", "print",
-               "inspect", "sexchr", "groupxy")
 
 
 def _parse_num(s):
@@ -145,6 +144,163 @@ def main_count(argv, device):
     return 0
 
 
+def main_recount(argv, device):
+    from yak_tpu_torch.models.count import recount
+    from yak_tpu_torch.table import KmerTable
+    o, pos = _getopt(argv, {"o": 1})
+    if len(pos) < 2:
+        return _usage(["Usage: yak_tpu_torch recount [-o <out.yak>] "
+                       "<kmer.yak> <seq.fa>"])
+    h = KmerTable.restore(pos[0], device)
+    recount(pos[1], h)
+    h.dump(o.get("o", "-"))
+    return 0
+
+
+def main_cntasm(argv, device):
+    from yak_tpu_torch import YAK_MAX_COUNT
+    from yak_tpu_torch.models.count import CountOpts, count_file
+    from yak_tpu_torch.table import KmerTable
+    o, pos = _getopt(argv, {"k": 1, "p": 1, "K": 1, "t": 1, "i": 1, "o": 1,
+                            "c": 1, "x": 1, "e": 1, "s": 1, "r": 0})
+    opt = CountOpts(chunk_size=_parse_num("1.9g"), device=str(device))
+    min_cnt, max_cnt, max_out, check_n = 1, 1, 0, 10
+    if "k" in o: opt.k = int(o["k"])
+    if "c" in o: min_cnt = int(o["c"])
+    if "x" in o: max_cnt = int(o["x"])
+    if "e" in o: max_out = int(o["e"])
+    if "s" in o: check_n = int(o["s"])
+    if "p" in o: opt.pre = int(o["p"])
+    if "K" in o: opt.chunk_size = _parse_num(o["K"])
+    if "t" in o: opt.n_thread = int(o["t"])
+    # -r (resize before merging, main.c:98) is always on: the merge
+    # reserves the union's capacity before it runs
+    if not pos:
+        return _usage(["Usage: yak_tpu_torch cntasm [options] <in1.fa> "
+                       "[in2.fa [...]]",
+                       "Options:",
+                       f"  -k INT     k-mer size [{opt.k}]",
+                       f"  -c INT     min count [{min_cnt}]",
+                       f"  -x INT     max count [{max_cnt}]",
+                       f"  -p INT     prefix length [{opt.pre}]",
+                       "  -r         resize before merging; use if merging "
+                       "is slow",
+                       f"  -t INT     number of worker threads "
+                       f"[{opt.n_thread}]",
+                       f"  -e INT     exclude a k-mer if absent from INT "
+                       f"samples [{max_out}]",
+                       f"  -s INT     shrink the hash table every INT "
+                       f"samples [{check_n}]",
+                       "  -K INT     chunk size [1.9g]",
+                       "  -i FILE    input k-mer dump []",
+                       "  -o FILE    output k-mer dump []",
+                       "  --device D cuda, cuda:N or cpu [cuda]",
+                       "Note: if input and output file names are identical, "
+                       "input is overwritten"])
+    if opt.k >= 32:
+        print("ERROR: -k must be <=31", file=sys.stderr)
+        return 1
+    h = None
+    if "i" in o:
+        try:
+            h = KmerTable.restore(o["i"], device)
+        except (OSError, ValueError):
+            print(f"WARNING: failed to read {o['i']}. Continue anyway",
+                  file=sys.stderr)
+    for i, fn in enumerate(pos):
+        h1 = count_file(fn, opt)
+        if h is None:
+            h = h1
+            h.shrink(min_cnt, max_cnt)
+            h.set_counts(1)
+        else:
+            h.merge(h1, min_cnt, max_cnt)
+        if i == len(pos) - 1 or (i + 1 > max_out and (i + 1) % check_n == 0):
+            h.shrink(i + 1 - max_out, YAK_MAX_COUNT)
+        print(f"[M::cntasm] processed file {fn}; {h.tot} distinct k-mers "
+              f"in the hash table", file=sys.stderr)
+    if "o" in o:
+        h.dump(o["o"])
+    return 0
+
+
+def main_subtract(argv, device):
+    from yak_tpu_torch.table import KmerTable
+    o, pos = _getopt(argv, {"t": 1, "o": 1})
+    if len(pos) < 2:
+        return _usage(["Usage: yak_tpu_torch subtract [options] <in1.yak> "
+                       "<in2.yak>"])
+    h0 = KmerTable.restore(pos[0], device)
+    h0.subtract(KmerTable.restore(pos[1], device))
+    h0.dump(o.get("o", "-"))
+    return 0
+
+
+def main_isec(argv, device):
+    from yak_tpu_torch.table import KmerTable
+    o, pos = _getopt(argv, {"t": 1, "o": 1})
+    if len(pos) < 2:
+        return _usage(["Usage: yak_tpu_torch isec [options] <in1.yak> "
+                       "<in2.yak> [in3.yak ...]"])
+    h0 = KmerTable.restore(pos[0], device)
+    for fn in pos[1:]:
+        h0.isec(KmerTable.restore(fn, device))
+    h0.dump(o.get("o", "-"))
+    return 0
+
+
+PRINT_BLOCK = 1 << 18      # k-mers formatted at a time by `print`
+
+
+def kmer_text(km, cnt, k, with_counts):
+    """The `print` lines of packed 2-bit k-mers (uint64) and, with
+    `with_counts`, their counts, as one str: each k-mer's k bases from
+    the most significant pair down, then a tab and the count in
+    decimal.  Built as a uint8 matrix a row a line, its unused digit
+    cells 0 and squeezed out."""
+    km = np.asarray(km, np.uint64)
+    shifts = np.arange(2 * (k - 1), -1, -2, dtype=np.uint64)
+    rows = [np.frombuffer(b"ACGT", np.uint8)[
+        ((km[:, None] >> shifts) & np.uint64(3)).astype(np.intp)]]
+    if with_counts:
+        c = np.asarray(cnt, np.int64)
+        ndig = 1 + (c >= 10) + (c >= 100) + (c >= 1000)
+        tail = np.zeros((len(c), 5), np.uint8)
+        tail[:, 0] = ord("\t")
+        for d in range(4):
+            digit = (c // 10 ** np.maximum(ndig - 1 - d, 0)) % 10
+            tail[:, d + 1] = np.where(d < ndig, ord("0") + digit, 0)
+        rows.append(tail)
+    rows.append(np.full((len(km), 1), ord("\n"), np.uint8))
+    buf = np.concatenate(rows, axis=1).reshape(-1)
+    return buf[buf != 0].tobytes().decode("ascii")
+
+
+def _print_impl(argv, device):
+    from yak_tpu_torch.table import KmerTable
+    o, pos = _getopt(argv, {"c": 0})
+    if not pos:
+        return _usage(["Usage: yak_tpu_torch print [-c] <in.yak>"])
+    h = KmerTable.restore(pos[0], device)
+    km, c = h.getseq()
+    for off in range(0, len(km), PRINT_BLOCK):
+        sys.stdout.write(kmer_text(km[off:off + PRINT_BLOCK],
+                                   c[off:off + PRINT_BLOCK], h.k,
+                                   "c" in o))
+    return 0
+
+
+def main_inspect(argv, device):
+    from yak_tpu_torch.models.inspect import main_inspect as insp
+    o, pos = _getopt(argv, {"m": 1})
+    if not pos:
+        return _usage(["Usage: yak_tpu_torch inspect [options] <in1.yak> "
+                       "[in2.yak]"])
+    insp(pos[0], pos[1] if len(pos) > 1 else None,
+         max_cnt=int(o.get("m", 20)), device=device)
+    return 0
+
+
 def main_qv(argv, device):
     from yak_tpu_torch.models.qv import QvOpts, main_qv as qv_main
     from yak_tpu_torch.table import KmerTable
@@ -223,8 +379,40 @@ def main_trioeval(argv, device):
     return 0
 
 
-_COMMANDS = {"count": main_count, "qv": main_qv, "chkerr": main_chkerr,
-             "triobin": main_triobin, "trioeval": main_trioeval}
+def main_sexchr(argv, device):
+    from yak_tpu_torch.models.sexchr import (SexchrOpts, load_sexchr_tables,
+                                             main_sexchr as sc)
+    o, pos = _getopt(argv, {"t": 1, "K": 1})
+    opt = SexchrOpts()
+    if "K" in o: opt.chunk_size = _parse_num(o["K"])
+    if len(pos) < 5:
+        return _usage(["Usage: yak_tpu_torch sexchr [options] <chrY.yak> "
+                       "<chrX.yak> <PAR.yak> <hap1.fa> <hap2.fa>"])
+    sc(opt, load_sexchr_tables(pos[0], pos[1], pos[2], device),
+       [pos[3], pos[4]])
+    return 0
+
+
+def main_groupxy(argv, device):
+    from yak_tpu_torch.models.sexchr import groupxy
+    o, pos = _getopt(argv, {"s": 1, "c": 1, "r": 1})
+    if not pos:
+        return _usage(["Usage: yak_tpu_torch groupxy [-s .7] [-c .3] "
+                       "[-r .9] in.sexchr"])
+    with open(pos[0]) as fp:
+        for line in groupxy(fp, float(o.get("s", 0.7)),
+                            float(o.get("c", 0.3)), float(o.get("r", 0.9))):
+            print(line)
+    return 0
+
+
+_COMMANDS = {
+    "count": main_count, "recount": main_recount, "cntasm": main_cntasm,
+    "subtract": main_subtract, "isec": main_isec, "print": _print_impl,
+    "qv": main_qv, "triobin": main_triobin, "trioeval": main_trioeval,
+    "inspect": main_inspect, "chkerr": main_chkerr, "sexchr": main_sexchr,
+    "groupxy": main_groupxy,
+}
 
 
 def main(argv=None):
@@ -241,10 +429,6 @@ def main(argv=None):
     if cmd == "version":
         print(__version__)
         return 0
-    if cmd in _NOT_PORTED:
-        print(f"[E::main] command '{cmd}' is not yet ported to "
-              f"yak_tpu_torch (see ROADMAP.md)", file=sys.stderr)
-        return 1
     if cmd not in _COMMANDS:
         print("[E::main] unknown command", file=sys.stderr)
         return 1

@@ -3,7 +3,7 @@
 Port of `yak_tpu/io/chunks.py` over the Python reader only; it yields
 the same PackedChunks as the JAX package's `YAK_TPU_NO_NATIVE=1` path.
 The native C++ reader (`yak_tpu/native/fastx.cpp`, built by path) is a
-later step of the port (ROADMAP Queue 1 step 1).
+later step of the port (ROADMAP Queue 1 step 2).
 """
 
 from yak_tpu_torch.io.fasta import FastxReader

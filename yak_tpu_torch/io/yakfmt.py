@@ -17,8 +17,9 @@ khashl slot-layout artifact (insertion-order dependent) with no behavioral
 meaning; we write keys sorted ascending, which is deterministic and
 topology-invariant.  Reference yak reads either order identically.
 
-Port of `yak_tpu/io/yakfmt.py` (dump, restore, load modes): a dump of
-the same table is byte-identical from either package.
+Port of `yak_tpu/io/yakfmt.py` (dump, restore, the streamed read of
+`open_yak_stream`, load modes): a dump of the same table is
+byte-identical from either package.
 """
 
 import struct
@@ -72,6 +73,58 @@ def dump_yak(path, k, pre, hashes, counts):
             fp.close()
 
 
+def _read_header(fp, path):
+    """(k, pre) of an open `.yak` file, after checking its magic and
+    counter bits."""
+    if fp.read(4) != YAK_MAGIC:
+        raise ValueError(f"{path}: wrong file magic")
+    k, pre, cbits = struct.unpack("<3I", fp.read(12))
+    if cbits != YAK_COUNTER_BITS:
+        raise ValueError(
+            f"{path}: saved counter bits {cbits} != {YAK_COUNTER_BITS}")
+    return int(k), int(pre)
+
+
+def open_yak_stream(path, batch_keys=1 << 22):
+    """Stream a `.yak` file in O(batch) host memory (two-table inspect's
+    shard-by-shard read, inspect.c:40-62, in batches of batch_keys).
+
+    Returns (k, pre, batches): `batches` yields (hashes u64[<=
+    batch_keys], counts i32) in file order, every batch but the last
+    exactly batch_keys long, with the full hashes rebuilt as
+    (key >> counter_bits) << pre | shard.  The file is closed when the
+    batches are exhausted or closed."""
+    fp = open(path, "rb")
+    try:
+        k, pre = _read_header(fp, path)
+    except BaseException:
+        fp.close()
+        raise
+
+    def batches():
+        with fp:
+            hs, cs, n = [], [], 0
+            for s in range(1 << pre):
+                _cap, sz = struct.unpack("<2I", fp.read(8))
+                left = sz
+                while left:
+                    m = min(left, batch_keys - n)
+                    buf = np.frombuffer(fp.read(8 * m), dtype="<u8")
+                    left -= m
+                    hs.append(((buf >> np.uint64(YAK_COUNTER_BITS))
+                               << np.uint64(pre)) | np.uint64(s))
+                    cs.append((buf & np.uint64(YAK_MAX_COUNT))
+                              .astype(np.int32))
+                    n += m
+                    if n == batch_keys:
+                        yield np.concatenate(hs), np.concatenate(cs)
+                        hs, cs, n = [], [], 0
+            if n:
+                yield np.concatenate(hs), np.concatenate(cs)
+
+    return k, pre, batches()
+
+
 def restore_yak(path):
     """Read a `.yak` file; returns (k, pre, hashes u64[N], counts i32[N]).
 
@@ -81,13 +134,7 @@ def restore_yak(path):
     recovery also required by two-table inspect, SURVEY.md §2.1).
     """
     with open(path, "rb") as fp:
-        magic = fp.read(4)
-        if magic != YAK_MAGIC:
-            raise ValueError(f"{path}: wrong file magic")
-        k, pre, cbits = struct.unpack("<3I", fp.read(12))
-        if cbits != YAK_COUNTER_BITS:
-            raise ValueError(
-                f"{path}: saved counter bits {cbits} != {YAK_COUNTER_BITS}")
+        k, pre = _read_header(fp, path)
         all_keys = []
         all_shards = []
         for s in range(1 << pre):

@@ -1,6 +1,6 @@
 """The `count` workload: stream sequences -> k-mer hashes -> counting
-table (count.c:147-166), and the Bloom two-pass `-b` protocol
-(main.c:53-60).
+table (count.c:147-166), `recount` (count.c:168-193), and the Bloom
+two-pass `-b` protocol (main.c:53-60).
 
 Port of `yak_tpu/models/count.py` (without `-X`): the host packs
 fixed-shape flat code chunks (io/pack.py) and the table folds them on
@@ -118,4 +118,20 @@ def count(files, opt):
     table.shrink(2, 1023)
     print(f"[M::count] {table.tot} distinct k-mers after shrinking",
           file=sys.stderr)
+    return table
+
+
+def recount(fn, table):
+    """Zero the counts, then count only the table's own keys over `fn`
+    (yak_recount): increment-only folds (the merge-reduce with
+    create=False; k >= 32 through its wide mode).  As in the JAX
+    package, sequences shorter than k are not skipped here (they give
+    no window)."""
+    table.clear_counts()
+    chunk = _device_chunk(CountOpts(k=table.k, pre=table.pre))
+    for packed in ChunkSource(fn, chunk, table.k, with_meta="records"):
+        per = detect_periodic_meta(packed)
+        table.insert_codes(packed.codes, create_new=False,
+                           periodic=per if per else False)
+    table.flush()
     return table

@@ -1,7 +1,9 @@
 """The device steps: the count fold (packed planes -> k-mer hashes ->
 sorted batch -> [Bloom gate ->] merge-reduce into the table) and the
-lookup steps of qv, chkerr, triobin and trioeval (packed planes ->
-hashes -> sorted queries -> merge-JOIN -> per-chunk reduction).
+lookup steps of qv, chkerr, triobin, trioeval and sexchr (packed
+planes -> hashes -> sorted queries -> merge-JOIN -> per-chunk
+reduction), and the sort + JOIN of raw hash batches (`lookup_keys`:
+inspect, `KmerTable.lookup_hashes`).
 
 Port of the default count engine of `yak_tpu/ops/countstep.py`
 (`get_count_step_pmerge{,_planes}`, `get_count_wide_step{,_planes}`,
@@ -40,7 +42,9 @@ reduction (`_qv_chunk_stats`, `_qv_fold_step`, `_qv_reduce`,
 compaction (`get_chkerr_mark_mid`, `run_mark_compact`), triobin's
 reductions and -p markers (`_triobin_reduce`, `get_triobin_join_post`,
 `get_triobin_psort_mid`) and trioeval's run markers (`_te_emit`,
-`get_trioeval_mark_mid`, `get_trioeval_psort_mid`).  A k >= 32 lookup
+`get_trioeval_mark_mid`, `get_trioeval_psort_mid`) and sexchr's
+segment sums (`_sexchr_reduce`, `get_sexchr_join_post`,
+`get_sexchr_psort_mid`).  A k >= 32 lookup
 goes through the same JOIN, its queries wide-encoded.  The JOIN writes
 each query's value at its original lane, so `plookup_post`'s order
 restore, `join_restore_vals` and `qv_psort_pad` have no counterpart
@@ -262,7 +266,24 @@ def lookup_chunk(carg, k, tkeys, tcnt, size, hook=None, psort=False):
     h, valid = extract(carg, k)
     h, valid = h.reshape(-1), valid.reshape(-1)
     mark("extract")
-    keys = torch.where(valid, encode_wide(h) if k > 31 else h, INT64_MAX)
+    vals = lookup_keys(h, valid, tkeys, tcnt, size, k > 31, psort, mark)
+    return vals, valid
+
+
+def lookup_keys(qkeys_raw, valid, tkeys, tcnt, size, wide, psort=False,
+                mark=None):
+    """The table count of each valid query, -1 where absent or invalid,
+    in lane order (int32 [B]): the sort + JOIN tail of the lookups
+    (countstep.lookup_pallas, KmerTable.lookup_hashes).  qkeys_raw int64
+    [B] holds raw hashes (k >= 32: the u64 bit patterns, wide-encoded
+    here as the table's keys are).  The queries are sorted with their
+    lane as payload (psort: through the sort kernel, else torch.sort)
+    and JOINed by the kernel, which stores each value at its lane.
+    `mark`, when given, is called with "sort" and "join" as each phase
+    is queued."""
+    mark = mark or (lambda _name: None)
+    keys = torch.where(valid, encode_wide(qkeys_raw) if wide else qkeys_raw,
+                       INT64_MAX)
     if psort:
         lane = torch.arange(keys.numel(), dtype=torch.int32,
                             device=keys.device)
@@ -273,7 +294,7 @@ def lookup_chunk(carg, k, tkeys, tcnt, size, hook=None, psort=False):
     mark("sort")
     vals = merge.merge_join(tkeys, tcnt, size, qkeys, order)
     mark("join")
-    return vals, valid
+    return vals
 
 
 def _cumsum0(mask):
@@ -549,3 +570,24 @@ def trioeval_mark_mid(typ, we, min_n, M):
                                  | (lane == we))
     return (torch.where(emit, lane, MARK_DROP), (runlen << 2) | typ,
             emit.sum(dtype=torch.int32))
+
+
+# -- sexchr ---------------------------------------------------------------
+
+def sexchr_reduce(vals, valid, bounds, M):
+    """sc_worker's per-segment sums of one chunk (countstep._sexchr_reduce,
+    get_sexchr_join_post, sexchr.c:61-71): with flag = the table value
+    where the window is valid (absent counts 0), the number of valid
+    windows, of flag > 0, of flag == 1 and of flag == 2 in each segment
+    [bounds[j], bounds[j+1]), the bounds clipped to [0, M].  Returns
+    int32 [4 * ns], the sums row-major [4, ns], one tensor for one copy
+    to the host.  The four planes take one cumsum over their
+    concatenation, as in triobin_reduce (a row-wise cumsum would scan
+    each row in one block); each plane's total is at most M."""
+    flag = torch.where(valid, vals.clamp(min=0), 0)
+    x = torch.stack([valid, flag > 0, flag == 1, flag == 2]).to(torch.int32)
+    cs = _cumsum0(x.reshape(-1))
+    bc = torch.clamp(bounds, 0, M).to(torch.int64)
+    at = (torch.arange(4, dtype=torch.int64, device=bc.device)[:, None] * M
+          + bc[None, :])
+    return (cs[at[:, 1:]] - cs[at[:, :-1]]).reshape(-1)

@@ -35,8 +35,14 @@ and `size` after `flush` and JOIN their queries against them
 file's flags into a table (`load_trio_tables`), through the plain
 sort-merge's OR mode, as the JAX package does in XLA.
 
-Not ported here: the serial-exact Bloom gate of `-X` and the table
-algebra (ROADMAP.md Queue 1).
+The table algebra (`merge`, `subtract`, `isec`, `getseq`, yak_ch_*,
+htab.c:241-367) runs through the same kernels: `merge`, cntasm's
+presence vote, folds `other`'s selected keys into the table by the
+merge-reduce in count mode; `subtract` and `isec` JOIN the table's own
+keys, already ascending, against `other` and compact the survivors.
+
+Not ported here: the serial-exact Bloom gate of `-X` (ROADMAP.md
+Queue 1).
 The TPU package's transient-fault retry (`yak_tpu/table.py:493-502`) is
 deliberately absent: on the card it would hide a fault.
 """
@@ -49,10 +55,12 @@ import torch
 from yak_tpu_torch import YAK_LOAD_ALL, YAK_MAX_COUNT
 from yak_tpu_torch.io import yakfmt
 from yak_tpu_torch.io.pack import detect_periodic, pack_planes, pack_planes2
-from yak_tpu_torch.ops import bloom, countstep
+from yak_tpu_torch.ops import bloom, countstep, merge
 from yak_tpu_torch.ops import sorttable as st
-from yak_tpu_torch.ops.keys import (decode_wide, encode_wide, torch_to_u64,
-                                    u32_to_torch, u64_to_torch)
+from yak_tpu_torch.ops.hash import hash64_inv
+from yak_tpu_torch.ops.keys import (INT64_MAX, decode_wide, encode_wide,
+                                    torch_to_u64, u32_to_torch,
+                                    u64_to_torch)
 from yak_tpu_torch.ops.kmers import MAX_K
 
 
@@ -291,6 +299,17 @@ class KmerTable:
             create=self._pend_create)
         self._tot = int(self.size)
 
+    def lookup_hashes(self, h, valid):
+        """int32 counts per lane of raw hashes `h` (int64; k >= 32 the u64
+        bit patterns), -1 where absent or not `valid` (yak_ch_get):
+        sorted and JOINed by `countstep.lookup_keys`, on the psort
+        engine under YAK_TPU_PSORT=1."""
+        self.flush()
+        return countstep.lookup_keys(h.to(self.device),
+                                     valid.to(self.device), self.keys,
+                                     self.cnt, self.size, self.wide,
+                                     countstep.psort_enabled())
+
     # -- cold-path table ops --------------------------------------------
 
     def _raw(self, keys):
@@ -339,6 +358,75 @@ class KmerTable:
         self.keys, self.cnt, self.size = st.compact_where(
             self.keys, self.cnt, self.size, keep)
         self._tot = int(self.size)
+
+    def _check_same(self, other, what):
+        if (self.k, self.pre, self.device) != (other.k, other.pre,
+                                               other.device):
+            raise ValueError(
+                f"{what}: a table of k={other.k}, pre={other.pre} on "
+                f"{other.device} against one of k={self.k}, "
+                f"pre={self.pre} on {self.device}")
+
+    def merge(self, other, cmin, cmax):
+        """Add one presence vote to each of `other`'s keys whose count is
+        in [cmin, cmax], creating the keys this table lacks (yak_ch_merge,
+        htab.c:241-285; cntasm).  The selected keys are compacted to an
+        ascending batch (unique, INT64_MAX after them) and folded in by
+        the merge-reduce in count mode, its counts saturating at 1023;
+        the union's capacity is reserved first."""
+        self._check_same(other, "merge")
+        cmax = cmax if cmin <= cmax <= YAK_MAX_COUNT else YAK_MAX_COUNT
+        self.flush()
+        other.flush()
+        sel = (other.cnt >= cmin) & (other.cnt <= cmax)
+        bkeys, _c, _n = st.compact_where(other.keys, other.cnt, other.size,
+                                         sel)
+        self._ensure_capacity(self.tot + other.tot)
+        okeys, ocnt, new_size, _n_new = merge.merge_reduce(
+            self.keys, self.cnt, self.size, bkeys, create=True,
+            wide=self.wide)
+        self.keys, self.cnt, self.size = okeys, ocnt, new_size
+        self._tot = int(new_size)
+        if self._tot > self.cap:
+            raise RuntimeError(f"merge: {self._tot} keys overflow the "
+                               f"reserved capacity {self.cap}")
+
+    def subtract(self, other):
+        """Drop the keys present in `other` (yak_ch_subtract)."""
+        self._filter_by_membership(other, keep_present=False)
+
+    def isec(self, other):
+        """Keep only the keys present in `other` (yak_ch_isec)."""
+        self._filter_by_membership(other, keep_present=True)
+
+    def _filter_by_membership(self, other, keep_present):
+        """The table's live keys, ascending, are `other`'s queries as they
+        are: the lanes at or beyond size (unspecified after a
+        merge-reduce) set to INT64_MAX, one JOIN with the identity as
+        their lanes and no query sort; then the survivors are compacted
+        in order."""
+        self._check_same(other, "subtract/isec")
+        self.flush()
+        other.flush()
+        lane = torch.arange(self.cap, dtype=torch.int32, device=self.device)
+        live = lane < self.size
+        present = merge.merge_join(
+            other.keys, other.cnt, other.size,
+            torch.where(live, self.keys, INT64_MAX), lane) >= 0
+        keep = present if keep_present else ~present & live
+        self.keys, self.cnt, self.size = st.compact_where(
+            self.keys, self.cnt, self.size, keep)
+        self._tot = int(self.size)
+
+    def getseq(self):
+        """Every live (packed 2-bit k-mer uint64, count) pair, the hashes
+        inverted on the host (yak_ch_getseq, htab.c:353-367); k <= 31
+        only, as a longer k-mer's hash is not invertible."""
+        if self.k > 31:
+            raise ValueError(f"getseq: k={self.k}; a table's k-mers can be "
+                             f"printed for k <= 31 only")
+        h_np, c_np = self.items()
+        return hash64_inv(h_np, (1 << (2 * self.k)) - 1), c_np
 
     # -- state bridge and I/O -------------------------------------------
 
