@@ -213,6 +213,7 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+T_START = time.perf_counter()        # after the imports; phase() reads it
 TOTAL_GATE = 6226713                 # bench.py:673
 HIST_GATE = "669014fae5d3"           # bench.py:248
 K = 31
@@ -270,8 +271,10 @@ def log(msg):
 
 
 def phase(name):
+    """Logs a phase's heading with the seconds since T_START, so that a
+    phase's time is the difference of two headings."""
     torch.cuda.synchronize()
-    log(f"== {name}")
+    log(f"== {name} (at {time.perf_counter() - T_START:.1f} s)")
 
 
 # -- phase 1 ------------------------------------------------------------
@@ -1652,9 +1655,9 @@ def trio_opts(**kw):
 
 
 class _LookupTimeline:
-    """Stands in for ops.countstep inside models.trio, models.scan and
-    models.sexchr, or the table module: marks each chunk's phases with a
-    CUDA event and the host clock ("start" as the lookup is queued, then
+    """Stands in for ops.countstep inside models.trio or models.scan, or
+    the table module: marks each chunk's phases with a CUDA event and
+    the host clock ("start" as the lookup is queued, then
     "extract", "sort", "join", "post" after the typing and the reduction,
     the marker mid or sexchr's sums, "markers" after the compaction or
     the marker sort); a batch of raw hashes (lookup_keys) is marked
@@ -2145,6 +2148,15 @@ def time_merge_call(call, label, card):
             "bound_ms": bound, "bound_by": "bytes", "library_ms": None}
 
 
+def check_sorts(calls, label):
+    """Sort kernel vs plain (check_sort) on every captured sort call."""
+    for i, (args, _kw) in enumerate(calls):
+        check_sort((args[0], args[1] if len(args) > 1 else None),
+                   f"{label} sort {i}")
+    log(f"  {label}: kernel == plain on {len(calls)} captured sort calls, "
+        f"inputs unchanged, pass counts as planned")
+
+
 def check_merges(calls, label):
     """Kernel vs plain on every captured count-mode merge-reduce call
     (positional create, or the create= keyword); returns the max abs
@@ -2205,8 +2217,8 @@ def recount_paths(dev, card, paths, chunks, results, by_path, psort=False):
     recounted over the reads it was counted from (the k=31 gates), and
     phase 11's k=33 table likewise (the k=33 gates); increment-only
     folds (count mode with create=False, the wide mode at k=33), each
-    fold's split on the device timeline.  The count-mode calls are
-    checked against their plain version."""
+    fold's split on the device timeline.  Every count-mode call, and
+    under psort every sort call, is checked against its plain version."""
     from yak_tpu_torch.models.count import recount
     from yak_tpu_torch.table import KmerTable
 
@@ -2222,7 +2234,8 @@ def recount_paths(dev, card, paths, chunks, results, by_path, psort=False):
              ("merge_reduce_wide",) + (("sort_i64",) if psort else ()))):
         t = KmerTable.restore(src, dev)
         reset_counts()
-        with fold_timeline() as tl, captured("merge", "merge_reduce") as ms:
+        with fold_timeline() as tl, captured("merge", "merge_reduce") as ms, \
+                captured("sort", "sort") as ss:
             _, wall, _span = timed_op(lambda: recount(paths["reads"], t))
         by_path[label] = read_counts()
         check_gates(t, f"{label}: wall {wall:.4f} s [{card}]", total, digest)
@@ -2230,12 +2243,15 @@ def recount_paths(dev, card, paths, chunks, results, by_path, psort=False):
         fold_split(tl.marks, wall, card, label)
         if any(c[0][4] for c in ms):
             raise AssertionError(f"{label} created keys")
-        if not psort and label == "recount":
-            r = results["merge_reduce"]
-            r["max_abs_err"] = max(r["max_abs_err"], check_merges(ms, label))
+        r = results["merge_reduce_wide" if "k33" in label else "merge_reduce"]
+        r["max_abs_err"] = max(r["max_abs_err"], check_merges(ms, label))
+        log(f"  {label}: kernel == plain on {len(ms)} captured merge calls")
+        if psort:
+            check_sorts(ss, label)
+        if label == "recount":
             r.setdefault("shapes", {})["recount"] = time_merge_call(
                 ms[0], "recount fold 0", card)
-        del t
+        del t, ms, ss
 
 
 def cntasm_path(card, paths, results, by_path):
@@ -2297,7 +2313,8 @@ def inspect_path(dev, card, paths, results, by_path, psort=False):
     (host), then against the -b24 table on the card, the first streamed
     in two 2^22-key batches, each sorted and JOINed (under psort the
     query sort through the sort kernel); md5s gated, the per-batch split
-    on the device timeline, the JOIN calls checked."""
+    on the device timeline, the JOIN calls (and under psort the sort
+    calls) checked."""
     from yak_tpu_torch import table as table_mod
     from yak_tpu_torch.models.inspect import main_inspect
 
@@ -2316,6 +2333,7 @@ def inspect_path(dev, card, paths, results, by_path, psort=False):
     try:
         # qv_solve's warnings (low coverage) go to stderr, as in yak_tpu
         with captured("merge", "merge_join") as js, \
+                captured("sort", "sort") as ss, \
                 contextlib.redirect_stderr(io.StringIO()):
             _, wall, _span = timed_op(lambda: main_inspect(
                 paths["a"], paths["b24"], out=sink, device=dev))
@@ -2334,13 +2352,16 @@ def inspect_path(dev, card, paths, results, by_path, psort=False):
         raise AssertionError(f"{name}: {len(js)} JOINs, want 2 batches")
     r = results["merge_join"]
     r["max_abs_err"] = max(r["max_abs_err"], check_joins(js, name))
+    if psort:
+        check_sorts(ss, name)
 
 
 def sexchr_path(dev, card, paths, results, by_path, psort=False):
     """Phase 26 (and 27 under psort): the chrY, chrX and PAR tables
     loaded as bits 1, 2, 4, then sexchr of hap1 and hap2 (six 2^23-base
     chunks each) and groupxy of its output; both md5s gated, the
-    per-chunk split on the device timeline, the JOIN calls checked."""
+    per-chunk split on the device timeline, every JOIN call (and under
+    psort every sort call) checked."""
     from yak_tpu_torch.models import scan, sexchr
 
     ch, wall, _span = timed_op(lambda: sexchr.load_sexchr_tables(
@@ -2349,15 +2370,16 @@ def sexchr_path(dev, card, paths, results, by_path, psort=False):
     name = "psort sexchr" if psort else "sexchr"
     buf = io.StringIO()
     tl = _LookupTimeline(scan.countstep)
-    scan.countstep = sexchr.countstep = tl
+    scan.countstep = tl
     reset_counts()
     try:
-        with captured("merge", "merge_join") as js:
+        with captured("merge", "merge_join") as js, \
+                captured("sort", "sort") as ss:
             _, wall, _span = timed_op(lambda: sexchr.main_sexchr(
                 sexchr.SexchrOpts(), ch, [paths["hap1"], paths["hap2"]],
                 out=buf))
     finally:
-        scan.countstep = sexchr.countstep = tl.countstep
+        scan.countstep = tl.countstep
     by_path[name] = read_counts()
     text = buf.getvalue()
     md5 = hashlib.md5(text.encode()).hexdigest()[:12]
@@ -2371,8 +2393,10 @@ def sexchr_path(dev, card, paths, results, by_path, psort=False):
     log(f"  {name}: device busy {busy:.4f} ms of {wall * 1e3:.4f} ms wall, "
         f"idle {1 - busy / (wall * 1e3):.4f} [{card}]")
     r = results["merge_join"]
-    r["max_abs_err"] = max(r["max_abs_err"], check_joins(js[:2], name))
-    if not psort:
+    r["max_abs_err"] = max(r["max_abs_err"], check_joins(js, name))
+    if psort:
+        check_sorts(ss, name)
+    else:
         lines = sexchr.groupxy(io.StringIO(text))
         gx = hashlib.md5("".join(f"{x}\n" for x in lines).encode())
         log(f"  groupxy: {len(lines)} rows, md5 {gx.hexdigest()[:12]}, "

@@ -1,16 +1,17 @@
-"""The per-segment sums driver of the lookup workloads that report one
-row of sums a sequence (sexchr).
+"""The per-segment sums loop of sexchr: one row of four sums a
+sequence.
 
 Port of the one-device part of `yak_tpu/models/scan.py`
 (`scan_seg_sums`, `_fold_seg_sums`).  Per record-meta chunk, on the
 table's device: the lookups (`countstep.lookup_chunk`: extract, query
-sort, the JOIN kernel) and a post that reduces the value stream to
-n_out sums a segment, one segment a record piece of the chunk; only the
-sums come back, through the lookup workloads' 2-deep pipeline
-(`utils.lookup_pipeline`).  The host adds up the pieces of a sequence
-that spans chunks.  The JAX package's per-position scan (`scan_file`)
-and the mesh drivers (`scan_seg_sums_mesh`, `scan_file_mesh`, ROADMAP.md
-Queue 1) are not ported here.
+sort, the JOIN kernel) and `countstep.sexchr_reduce`, which reduces the
+value stream to four sums a segment, one segment a record piece of the
+chunk; only the sums come back, through the lookup workloads' 2-deep
+pipeline (`utils.lookup_pipeline`).  The host adds up the pieces of a
+sequence that spans chunks.  The JAX package's general post and its
+per-position scan (`scan_file`) have no second user here, and the mesh
+versions (`scan_seg_sums_mesh`, `scan_file_mesh`, ROADMAP.md Queue 1)
+are not ported.
 """
 
 import numpy as np
@@ -21,17 +22,14 @@ from yak_tpu_torch.ops import countstep
 from yak_tpu_torch.utils import lookup_pipeline, settle, to_host_async
 
 
-def scan_seg_sums(fn, table, chunk_size, post, n_out):
-    """Yield (name, seq_len, sums tuple of n_out ints) per sequence of
-    `fn`, in input order.  `post(vals, valid, bounds, M)` maps a chunk's
-    lookup values (int32 [M], -1 where absent) and validity to int32
-    [n_out * ns], the sums row-major [n_out, ns] of the segments
-    [bounds[j], bounds[j+1]) (`countstep.sexchr_reduce`).  The engine
-    (YAK_TPU_PSORT) is read once a run."""
+def scan_seg_sums(fn, table, chunk):
+    """Yield (name, seq_len, (n_k, n_sexchr, n_sex1, n_sex2)) per
+    sequence of `fn`, in input order, from chunks of `chunk` bases (a
+    multiple of 1024, main_sexchr's).  The engine (YAK_TPU_PSORT) is
+    read once a run."""
     k = table.k
     table.flush()
     dev = table.device
-    chunk = -(-max(1 << 14, int(chunk_size)) // 1024) * 1024
     M = chunk - k + 1
     psort = countstep.psort_enabled()
 
@@ -43,20 +41,21 @@ def scan_seg_sums(fn, table, chunk_size, post, n_out):
         carg = pack_chunk_planes(packed, dev)
         vals, valid = countstep.lookup_chunk(carg, k, table.keys, table.cnt,
                                              table.size, psort=psort)
-        sums = post(vals, valid, torch.from_numpy(bounds).to(dev), M)
+        sums = countstep.sexchr_reduce(vals, valid,
+                                       torch.from_numpy(bounds).to(dev), M)
         return ns, to_host_async((sums,))
 
     def stream():
         for packed, (ns, host) in lookup_pipeline(fn, chunk, k, dispatch):
             nseq = len(packed.rec_gid)
-            r = settle(host)[0].numpy().reshape(n_out, ns)[:, :nseq]
+            r = settle(host)[0].numpy().reshape(4, ns)[:, :nseq]
             yield packed, r
 
     yield from _fold_seg_sums(stream())
 
 
 def _fold_seg_sums(stream):
-    """Fold (packed, sums [n_out, nseq]) pairs into (name, seq_len, sums)
+    """Fold (packed, sums [4, nseq]) pairs into (name, seq_len, sums)
     rows, adding up the pieces of a sequence that spans chunks."""
     carry = None
     for packed, outs in stream:

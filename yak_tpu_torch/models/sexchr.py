@@ -17,7 +17,6 @@ from dataclasses import dataclass
 from yak_tpu_torch import (YAK_LOAD_SEXCHR1, YAK_LOAD_SEXCHR2,
                            YAK_LOAD_SEXCHR3)
 from yak_tpu_torch.models.scan import scan_seg_sums
-from yak_tpu_torch.ops import countstep
 from yak_tpu_torch.table import KmerTable
 
 
@@ -48,7 +47,7 @@ def main_sexchr(opt, ch, hap_fns, out=None):
     chunk = -(-chunk // 1024) * 1024
     for hap, fn in enumerate(hap_fns, start=1):
         for name, _L, (n_k, n_sexchr, n_sex1, n_sex2) in scan_seg_sums(
-                fn, ch, chunk, countstep.sexchr_reduce, 4):
+                fn, ch, chunk):
             out.write(f"S\t{name}\t{hap}\t0\t{n_k}\t{n_sexchr}\t{n_sex1}\t"
                       f"{n_sex2}\n")
 
