@@ -171,7 +171,27 @@ Phases, in order; any failure exits non-zero:
  28. recount, cntasm, subtract, isec, print -c, inspect (one and two
      tables), sexchr and groupxy through the CLI on the card and on the
      CPU in this process, chunk 16384, on phase 5's inputs: byte-identical
-     stdout and dumps.
+     stdout and dumps;
+ 29. count on a mesh of four shards of the card (parallel/mesh.py, a
+     mesh of [cuda:0] * 4): phase 10's one-line FASTA of phase 4's reads
+     through count_file_mesh at chunk 2^23 (two groups of four chunks,
+     each chunk extracted on its shard, each hash routed to its owner
+     shard, each shard's batch folded by its own table), 2^21 lanes a
+     shard, at k=31 and k=33, on the default engine and under psort:
+     phase 4's and phase 11's gates; the default engine's dumps md5-equal
+     to the one-device dumps (phase 4's table, and phase 11's count
+     again), the psort engine's items equal to them shard by shard; the
+     psort k=31 run starts from 2^19 lanes a shard, so every shard's
+     first fold overflows and replays one fold late on the card; every
+     captured per-shard merge-reduce call, and under psort every sort
+     call, held against its plain version bit for bit; per group the
+     device and host spans (the routing's included) beside phase 4's
+     one-device wall and busy time;
+ 30. qv on the same mesh: seeds 101 and 102 against phase 29's k=31 table
+     on both engines through the routed lookup (each owner shard sorts
+     and JOINs its queries, the values go home by slot); phase 7's gates;
+     every captured per-shard JOIN and sort call held against its plain
+     version; per group the spans beside phase 7's one-device figures.
 
 The md5 gates of phases 24-26 (ALGEBRA_DIGEST) are what `yak_tpu`
 prints on the CPU for the same seeded inputs (tools/algebra_gates.py).
@@ -193,7 +213,11 @@ chkerr, the -b24 sentinel post (phase 13), the dense input, and the
 trio paths' calls (phase 17: `triobin_diff`, `trioeval`); the JOIN's
 and the sorts' `shapes` give their trio calls likewise, the JOIN's also
 subtract's call (phase 24), and the count mode's a recount fold and a
-cntasm presence vote) and the
+cntasm presence vote; the `*_mesh` entries are the per-shard launches
+of phases 29-30, which replace yak_tpu's shard_mapped wrappers
+(`merge_reduce_presorted_mesh`, `sort_planes_mesh` with its pass chain,
+and `sort_planes32_mesh`, whose order restores are the JOIN's stores and
+the scatter by slot), timed at a shard's call) and the
 contract line
 {"ok": true, "device": {...}}.  Imports no JAX.
 """
@@ -264,6 +288,11 @@ DENSE_COMPACT = (8_388_578, 0.5, 16)  # phase 6's dense compaction input
 TRIO_CONTIGS = 24                    # bench.py:302
 TB_DIGEST = {7: "d813150efc7a", 8: "34ffd15f941e"}   # bench.py:252
 TE_DIGEST = {17: "f3a76225e75b", 18: "d46fdf6d1eea"}  # bench.py:450
+MESH_SHARDS = 4                      # phases 29-30: [cuda:0] * 4
+MESH_CAP_LOG2 = 21                   # phase 29's lanes a shard (2^23 / 4)
+MESH_REPLAY_CAP_LOG2 = 19            # phase 29's replay run
+MESH_CHUNK = 1 << 23                 # phase 29's chunk (phase 10's)
+ONE_DEVICE = {}      # (wall s, device busy ms) of phases 4 and 7, for 29-30
 
 
 def log(msg):
@@ -544,7 +573,8 @@ def run_count(chunks, dev, marks=None, cap_log2=23, k=K):
 def split_marks(marks, card):
     """Print the per-fold split of one marked count: device spans from
     CUDA events, host spans from perf_counter, and the host time of the
-    chunk packing (each "insert" up to the next mark)."""
+    chunk packing (each "insert" up to the next mark); returns (wall s,
+    device busy ms)."""
     pack_s = sum(b[2] - a[2] for a, b in zip(marks, marks[1:])
                  if a[0] == "insert")
     folds, cur = [], None
@@ -568,6 +598,7 @@ def split_marks(marks, card):
         f"count: {pack_s:.4f} s of {wall_s:.4f} s wall")
     log(f"  device compute (extract+sort+merge+finalize) {busy_ms:.4f} ms "
         f"of {wall_s * 1e3:.4f} ms wall [{card}]")
+    return wall_s, busy_ms
 
 
 def count_path(dev, card, chunks):
@@ -589,7 +620,7 @@ def count_path(dev, card, chunks):
         raise AssertionError("the count path never launched the kernel")
     log(f"  count wall {wall:.4f} s, {n_kmers / wall:.1f} k-mers/s "
         f"[{card}]")
-    split_marks(marks, card)
+    ONE_DEVICE["count"] = split_marks(marks, card)
 
     # the same host work alone, after the count
     from yak_tpu_torch.io.pack import detect_periodic, pack_planes2
@@ -700,13 +731,7 @@ def write_lookup_inputs(d, reads):
     reads as FASTQ."""
     genome = np.random.default_rng(42).integers(0, 4, GENOME_LEN,
                                                 dtype=np.uint8)
-    paths = {}
-    for seed in (100, *QV_SEEDS):
-        rng = np.random.default_rng(seed)
-        starts = rng.integers(0, GENOME_LEN - READ_LEN + 1, N_READS)
-        paths[seed] = os.path.join(d, f"qv_{seed}.fa")
-        write_fasta(paths[seed], genome[starts[:, None]
-                                        + np.arange(READ_LEN)[None, :]])
+    paths = write_qv_sets(d, (100, *QV_SEEDS))
     paths["contigs"] = os.path.join(d, "contigs.fa")
     write_fasta(paths["contigs"], make_contigs(genome),
                 [b"ctg%d" % i for i in range(N_CONTIGS)])
@@ -716,6 +741,21 @@ def write_lookup_inputs(d, reads):
     with open(paths["reads"], "wb") as f:
         f.write(b"".join(b"@r%d\n%s\n+\n%s\n" % (i, alph[r].tobytes(), qual)
                          for i, r in enumerate(reads)))
+    return paths
+
+
+def write_qv_sets(d, seeds):
+    """bench.py's qv read sets of `seeds` (400,000 error-free 150 bp reads
+    of the genome each, bench.py:237-243); returns {seed: path}."""
+    genome = np.random.default_rng(42).integers(0, 4, GENOME_LEN,
+                                                dtype=np.uint8)
+    paths = {}
+    for seed in seeds:
+        rng = np.random.default_rng(seed)
+        starts = rng.integers(0, GENOME_LEN - READ_LEN + 1, N_READS)
+        paths[seed] = os.path.join(d, f"qv_{seed}.fa")
+        write_fasta(paths[seed], genome[starts[:, None]
+                                        + np.arange(READ_LEN)[None, :]])
     return paths
 
 
@@ -996,7 +1036,9 @@ def qv_run(table, paths, seed, card, timeline=True):
         raise AssertionError(f"qv seed {seed}: gates failed (want sum "
                              f"{QV_SUM}, cnt[0] 0, digest {digest})")
     if timeline:
-        split_chunks(tl.marks, card)
+        busy, _by_phase = split_chunks(tl.marks, card)
+        if os.environ.get("YAK_TPU_PSORT") != "1":
+            ONE_DEVICE[f"qv {seed}"] = (wall, busy)
 
 
 def split_chunks(marks, card):
@@ -2500,6 +2542,307 @@ def algebra_phases(dev, card, count_items, reads, chunks, results, by_path):
     algebra_cli_check()
 
 
+# -- phases 29-30: counting and qv on a mesh of 4 shards of the card -------
+
+# the port's mesh launches by kernels-line entry: a per-shard launch of a
+# kernel that yak_tpu launches through a shard_map wrapper
+MESH_ENTRIES = {"merge_reduce": "merge_reduce_mesh",
+                "merge_reduce_wide": "merge_reduce_wide_mesh",
+                "merge_join": "merge_join_mesh",
+                "sort_i64": "sort_i64_mesh",
+                "sort_i64_i32": "sort_i64_i32_mesh"}
+_MESH_SORT = {"replaces": "yak_tpu/ops/pallas_sort.py:691",
+              "replaces_also": ["yak_tpu/ops/pallas_sort.py:631",
+                                "yak_tpu/ops/pallas_sort.py:717"]}
+KERNELS.update({
+    "merge_reduce_mesh": dict(KERNELS["merge_reduce"],
+                              name="merge_reduce_mesh",
+                              replaces="yak_tpu/ops/pallas_merge.py:605"),
+    "merge_reduce_wide_mesh": dict(KERNELS["merge_reduce_wide"],
+                                   name="merge_reduce_wide_mesh",
+                                   replaces="yak_tpu/ops/pallas_merge.py:605"),
+    # sort_planes32_mesh's two order restores are the JOIN's stores at the
+    # lane and the scatter by slot (parallel/mesh._route_back)
+    "merge_join_mesh": dict(KERNELS["merge_join"], name="merge_join_mesh",
+                            replaces="yak_tpu/ops/pallas_merge.py:605",
+                            replaces_also=["yak_tpu/ops/pallas_sort.py:701"]),
+    "sort_i64_mesh": dict(KERNELS["sort_i64"], name="sort_i64_mesh",
+                          **_MESH_SORT),
+    "sort_i64_i32_mesh": dict(KERNELS["sort_i64_i32"],
+                              name="sort_i64_i32_mesh", **_MESH_SORT),
+})
+
+
+def mesh_counts(counts):
+    """read_counts() of a mesh path under the mesh entries' names."""
+    return {MESH_ENTRIES.get(n, n): c for n, c in counts.items()}
+
+
+class _GroupMarks:
+    """Marks each group's phases (the hook of count_file_mesh and
+    mesh_routed_groups) and, standing in for ops.countstep inside
+    models.qv, each chunk's post, with a CUDA event and the host
+    clock."""
+
+    def __init__(self, countstep=None):
+        self.countstep, self.marks = countstep, []
+
+    def __getattr__(self, attr):
+        return getattr(self.countstep, attr)
+
+    def __call__(self, name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.marks.append((name, ev, time.perf_counter()))
+
+    def qv_join_post(self, *args, **kw):
+        out = self.countstep.qv_join_post(*args, **kw)
+        self("post")
+        return out
+
+
+def split_groups(marks, wall, card, what):
+    """Per-group device spans (CUDA events) and host spans of one marked
+    mesh run, the routing per group, and the device busy and idle share
+    of the wall, the "h2d" spans (the host packing the group's chunks,
+    each upload waiting for it) left out of busy; returns the device
+    busy ms."""
+    groups, cur = [], None
+    for m in marks:
+        if m[0] == "start":
+            cur = [m]
+            groups.append(cur)
+        else:
+            cur.append(m)
+    busy, by_phase, route_host = 0.0, {}, []
+    for i, g in enumerate(groups):
+        dev = [(b[0], a[1].elapsed_time(b[1])) for a, b in zip(g, g[1:])]
+        host = [(b[0], (b[2] - a[2]) * 1e3) for a, b in zip(g, g[1:])]
+        busy += sum(ms for n, ms in dev if n != "h2d")
+        for n, ms in dev:
+            by_phase.setdefault(n, []).append(ms)
+        route_host += [ms for n, ms in host if n == "route"]
+        log(f"  {what} group {i} device: " + ", ".join(
+            f"{n} {ms:.4f} ms" for n, ms in dev) + f" [{card}]")
+        log(f"  {what} group {i} host:   " + ", ".join(
+            f"{n} {ms:.4f} ms" for n, ms in host))
+    route = by_phase.get("route", [0.0])
+    log(f"  {what}: {len(groups)} groups of {MESH_SHARDS} chunks; routing "
+        f"per group {min(route):.4f}-{max(route):.4f} ms on the device, "
+        f"{min(route_host):.4f}-{max(route_host):.4f} ms on the host (its "
+        f"one read of the counts included); device busy {busy:.4f} ms of "
+        f"{wall * 1e3:.4f} ms wall, idle {1 - busy / (wall * 1e3):.4f} "
+        f"[{card}]")
+    return busy
+
+
+def beside(what, wall, busy, one, card):
+    """The mesh run's wall and busy time beside the one-device phase's."""
+    w1, b1 = ONE_DEVICE[one]
+    log(f"  {what}: wall {wall:.4f} s, device busy {busy:.4f} ms on "
+        f"{MESH_SHARDS} shards of the card; {one} on one device (phase "
+        f"{4 if one == 'count' else 7}): wall {w1:.4f} s, busy {b1:.4f} ms "
+        f"[{card}]")
+
+
+def mesh_count_paths(dev, card, fa, count_items, chunks, results, by_path):
+    """Phase 29; returns the k=31 mesh table."""
+    from yak_tpu_torch.io import yakfmt
+    from yak_tpu_torch.models.count import CountOpts
+    from yak_tpu_torch.ops import sort
+    from yak_tpu_torch.parallel.mesh import count_file_mesh, make_mesh
+
+    mesh = make_mesh(devices=[dev] * MESH_SHARDS)
+    d = os.path.dirname(fa)
+    one = {K: os.path.join(d, "one.yak"), K33: os.path.join(d, "one33.yak")}
+    yakfmt.dump_yak(one[K], K, 10, *count_items)
+    with contextlib.redirect_stderr(io.StringIO()):
+        run_count(chunks, dev, k=K33).dump(one[K33])
+    for k in one:
+        log(f"  one-device k={k} dump md5 {file_md5(one[k])}")
+
+    def count(k, cap_log2, marks):
+        opt = CountOpts(k=k, chunk_size=MESH_CHUNK, device=str(dev))
+        t0 = time.perf_counter()
+        mt = count_file_mesh(fa, opt, mesh, cap_log2=cap_log2, hook=marks)
+        torch.cuda.synchronize()
+        return mt, time.perf_counter() - t0
+
+    table, err, default_items = None, {}, {}
+    for name, k, total, digest, psort, cap_log2 in (
+            ("mesh count", K, TOTAL_GATE, HIST_GATE, False, MESH_CAP_LOG2),
+            ("mesh k33", K33, K33_DISTINCT, K33_HIST, False, MESH_CAP_LOG2),
+            ("psort mesh count, replayed", K, TOTAL_GATE, HIST_GATE, True,
+             MESH_REPLAY_CAP_LOG2),
+            ("psort mesh k33", K33, K33_DISTINCT, K33_HIST, True,
+             MESH_CAP_LOG2)):
+        merge_entry = "merge_reduce_wide" if k == K33 else "merge_reduce"
+        with psort_engine() if psort else contextlib.nullcontext():
+            marks = _GroupMarks()
+            reset_counts()
+            with captured("merge", "merge_reduce") as ms, \
+                    captured("sort", "sort") as ss:
+                mt, wall = count(k, cap_log2, marks)
+            counts = read_counts()
+        by_path[name] = mesh_counts(counts)
+        check_gates(mt, f"{name}: wall {wall:.4f} s [{card}]", total, digest)
+        check_launched(counts, (merge_entry,) + (("sort_i64",) if psort
+                                                 else ()), name)
+        items = mt.items()
+        if not psort:
+            # the dump, as one-device dumps are, md5-equal to phase 4's
+            # (phase 11's count at k=33)
+            out = os.path.join(d, "mesh.yak")
+            with contextlib.redirect_stderr(io.StringIO()):
+                mt.dump(out)
+            if file_md5(out) != file_md5(one[k]):
+                raise AssertionError(f"{name}: the dump differs from the "
+                                     f"one-device dump")
+            log(f"  {name}: dump md5 {file_md5(out)} = the one-device "
+                f"dump's")
+            default_items[k] = items
+        elif not all(np.array_equal(a, b)
+                     for a, b in zip(items, default_items[k])):
+            # the same items shard by shard: the same dump
+            raise AssertionError(f"{name}: items differ from the default "
+                                 f"engine's")
+        else:
+            log(f"  {name}: items equal to the default engine's, shard by "
+                f"shard (the same dump)")
+        log(f"  {name}: shard sizes {[s.tot for s in mt.shards]}, "
+            f"capacities {[s.cap for s in mt.shards]}")
+        if cap_log2 == MESH_REPLAY_CAP_LOG2:
+            if not all(s.cap > 1 << cap_log2 for s in mt.shards):
+                raise AssertionError(f"{name}: no shard grew from 2^"
+                                     f"{cap_log2} lanes")
+            log(f"  {name}: every shard grew from 2^{cap_log2} lanes by the "
+                f"one-fold-late replay ({len(ms)} merge calls for "
+                f"{sum(m[0] == 'start' for m in marks.marks)} groups of "
+                f"{MESH_SHARDS} shards)")
+        busy = split_groups(marks.marks, wall, card, name)
+        if not psort and k == K:
+            beside(name, wall, busy, "count", card)
+        mesh_entry = MESH_ENTRIES[merge_entry]
+        err[mesh_entry] = max(err.get(mesh_entry, 0), check_merges(ms, name))
+        log(f"  {name}: kernel == plain on {len(ms)} captured per-shard "
+            f"merge calls")
+        if psort:
+            check_sorts(ss, name)
+        if not psort and mesh_entry not in results:
+            results[mesh_entry] = time_merge_call(
+                ms[-1], f"{name}: the last shard's fold of the last group",
+                card)
+        if psort and k == K33:
+            keys = max((a[0] for a, _kw in ss), key=lambda t: t.numel())
+            results["sort_i64_mesh"] = time_kernel(
+                sort.sort, sort.sort_plain, (keys, None),
+                2 * keys.numel() * 8 / HBM_BYTES_PER_S * 1e3,
+                lambda keys=keys: torch.sort(keys),
+                f"sort_i64 at {name}'s largest shard batch (n "
+                f"{keys.numel()}; library: torch.sort)", card)
+        if name == "mesh count":
+            table = mt
+        del mt, ms, ss, items
+    for entry, e in err.items():
+        results[entry]["max_abs_err"] = max(results[entry]["max_abs_err"], e)
+    results["sort_i64_mesh"]["max_abs_err"] = 0    # check_sorts raised else
+    return table
+
+
+def mesh_qv_paths(dev, card, table, paths, results, by_path):
+    """Phase 30: qv of seeds 101 and 102 against phase 29's table on both
+    engines, through the routed lookup; the gates, and every per-shard
+    JOIN and sort call checked against its plain version."""
+    from yak_tpu_torch.models import qv
+    from yak_tpu_torch.ops import merge, sort
+    from yak_tpu_torch.parallel import mesh as pmesh
+
+    n_lookups = N_READS * (READ_LEN - K + 1)
+    route = pmesh.mesh_routed_groups
+    join_err = 0
+    for psort in (False, True):
+        for seed in QV_SEEDS:
+            name = f"{'psort ' if psort else ''}mesh qv {seed}"
+            marks = _GroupMarks(qv.countstep)
+            qv.countstep = marks
+            qv.mesh_routed_groups = lambda *a, **kw: route(*a, hook=marks,
+                                                           **kw)
+            try:
+                with psort_engine() if psort else contextlib.nullcontext():
+                    reset_counts()
+                    with captured("merge", "merge_join") as js, \
+                            captured("sort", "sort") as ss:
+                        t0 = time.perf_counter()
+                        cnt = qv.run_qv(qv_opts(), paths[seed], table,
+                                        out=io.StringIO())
+                        torch.cuda.synchronize()
+                        wall = time.perf_counter() - t0
+                    counts = read_counts()
+            finally:
+                qv.countstep = marks.countstep
+                qv.mesh_routed_groups = route
+            by_path[name] = mesh_counts(counts)
+            check_launched(counts, ("merge_join",) + (
+                ("sort_i64_i32", "sort_i32") if psort else ()), name)
+            dg = hashlib.md5(np.ascontiguousarray(cnt, np.int64)
+                             .tobytes()).hexdigest()[:12]
+            log(f"  {name}: cnt sum {int(cnt.sum())}, cnt[0] {int(cnt[0])}, "
+                f"digest {dg}; {n_lookups / wall:.1f} lookups/s [{card}]")
+            if (int(cnt.sum()) != QV_SUM or int(cnt[0]) != 0
+                    or dg != QV_SEEDS[seed]):
+                raise AssertionError(f"{name}: gates failed")
+            busy = split_groups(marks.marks, wall, card, name)
+            if not psort:
+                beside(name, wall, busy, f"qv {seed}", card)
+            join_err = max(join_err, check_joins(js, name))
+            if psort:
+                check_sorts(ss, name)
+            if not psort and "merge_join_mesh" not in results:
+                args = js[0][0]
+                live, nq = int(args[2]), args[3].numel()
+                results["merge_join_mesh"] = time_kernel(
+                    merge.merge_join, merge.merge_join_plain, args,
+                    (12 * live + 16 * nq) / HBM_BYTES_PER_S * 1e3, None,
+                    f"JOIN at shard 0's queries of group 0 (cap "
+                    f"{args[0].numel()}, live {live}, B {nq})", card)
+            if psort and "sort_i64_i32_mesh" not in results:
+                keys, pay = max(((a[0], a[1]) for a, _kw in ss
+                                 if len(a) > 1 and a[0].dtype == torch.int64),
+                                key=lambda t: t[0].numel())
+                results["sort_i64_i32_mesh"] = time_kernel(
+                    sort.sort, sort.sort_plain, (keys, pay),
+                    2 * keys.numel() * 12 / HBM_BYTES_PER_S * 1e3,
+                    lambda keys=keys: torch.sort(keys),
+                    f"sort_i64_i32 at {name}'s largest shard batch (n "
+                    f"{keys.numel()}; library: torch.sort of the keys)",
+                    card)
+                results["sort_i64_i32_mesh"]["max_abs_err"] = 0
+            del js, ss
+    results["merge_join_mesh"]["max_abs_err"] = join_err
+
+
+def mesh_phases(dev, card, count_items, reads, chunks, results, by_path):
+    """Phases 29-30."""
+    d = tempfile.mkdtemp(prefix="yak_tpu_torch_mesh_")
+    try:
+        t0 = time.perf_counter()
+        fa = os.path.join(d, "reads.fa")
+        write_fasta(fa, reads)
+        paths = write_qv_sets(d, QV_SEEDS)
+        log(f"  mesh inputs written in {time.perf_counter() - t0:.3f} s")
+
+        phase(f"29. count on a mesh of {MESH_SHARDS} shards of the card")
+        table = mesh_count_paths(dev, card, fa, count_items, chunks, results,
+                                 by_path)
+
+        phase(f"30. qv on a mesh of {MESH_SHARDS} shards of the card")
+        mesh_qv_paths(dev, card, table, paths, results, by_path)
+    finally:
+        for name in os.listdir(d):
+            os.unlink(os.path.join(d, name))
+        os.rmdir(d)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on the card",
@@ -2624,6 +2967,7 @@ def main():
     count_cli_check(psort=True)
     trio_phases(dev, card, count_items, reads, results, by_path)
     algebra_phases(dev, card, count_items, reads, chunks, results, by_path)
+    mesh_phases(dev, card, count_items, reads, chunks, results, by_path)
     torch.cuda.synchronize()
 
     print(json.dumps({"kernels": [

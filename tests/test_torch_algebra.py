@@ -155,8 +155,14 @@ def test_table_ops_refuse_other_k():
     a = KmerTable(21, device="cpu")
     with pytest.raises(ValueError, match="k=33"):
         a.isec(KmerTable(33, device="cpu"))
-    with pytest.raises(ValueError, match="k=33"):
-        a.merge(KmerTable(33, device="cpu"), 1, 1)
+    # merge takes a table of another k: its raw hashes, all 64 bits
+    rng = np.random.default_rng(4)
+    hb = np.unique(rng.integers(0, 1 << 64, 300, dtype=np.uint64))
+    a.merge(_port_table(33, hb, np.full(len(hb), 5, np.int32), 1 << 10,
+                        rng), 1, 9)
+    ah, ac = a.items()
+    np.testing.assert_array_equal(np.sort(ah), hb)
+    assert (ac == 1).all() and (a.k, a.pre) == (21, 10)
     with pytest.raises(ValueError, match="k <= 31"):
         KmerTable(33, device="cpu").getseq()
 
@@ -219,12 +225,34 @@ def _case(inputs, tmp, cmd, k):
                      "-o", "@", asm[3]],
         "cntasm-i-missing": ["cntasm", f"-k{k}", K, "-i",
                              str(tmp / "none.yak"), "-o", "@", asm[0]],
+        **{f"cntasm-i-{other}": ["cntasm", f"-k{k}", K, "-i",
+                                 _i_table(inputs, tmp, other), "-o", "@",
+                                 asm[3]]
+           for other in I_TABLES},
     }[cmd]
+
+
+# -i tables of another pre or k for cntasm -k21: `yak_tpu`'s cntasm -p12
+# and -k17 of two assemblies, and a k = 33 count of the reads
+I_TABLES = {"p12": ["-k21", "-p12"], "k17": ["-k17"], "k33": None}
+
+
+def _i_table(inputs, tmp, other):
+    path = tmp / f"ca-{other}.yak"
+    if I_TABLES[other] is None:
+        return inputs["reads_a33"]
+    if not path.exists():
+        with contextlib.redirect_stderr(io.StringIO()):
+            assert jax_cli.main(["cntasm", *I_TABLES[other],
+                                 f"-K{cases.CHUNK}", "-o", str(path),
+                                 inputs["asm0"], inputs["asm1"]]) == 0
+    return str(path)
 
 
 CASES = [(c, 21) for c in ("recount", "subtract", "isec", "print", "print-c",
                            "cntasm", "cntasm-c1x2e1s2", "cntasm-i",
-                           "cntasm-i-missing")] + \
+                           "cntasm-i-missing", "cntasm-i-p12",
+                           "cntasm-i-k17", "cntasm-i-k33")] + \
     [(c, 33) for c in ("recount", "subtract", "isec", "print-c", "cntasm")]
 
 

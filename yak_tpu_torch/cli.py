@@ -12,6 +12,10 @@ JAX package.
 The device is chosen explicitly: `--device cuda|cuda:N|cpu` anywhere
 on the command line, else `cuda`.  When CUDA is asked for and absent,
 the CLI raises; it never falls back to the CPU on its own.
+
+`count` (but the literal -b two-pass) and `qv` of k <= 31 run on a mesh
+(`_auto_mesh`, YAK_TPU_MESH) as in the JAX package; the other commands
+stay on one device.
 """
 
 import os
@@ -97,8 +101,37 @@ def resolve_device(name):
     return dev
 
 
+def _auto_mesh(k, device):
+    """The CLI's multi-device surface (yak_tpu/cli.py:55-76): with a CUDA
+    device, a mesh over the largest power-of-two number of CUDA devices
+    when more than one is present; YAK_TPU_MESH=0 keeps one device and
+    YAK_TPU_MESH=1 forces a mesh, on one device (or the CPU) of that
+    device repeated `parallel.mesh.FORCED_SHARDS` times.  k >= 32 tables
+    stay on one device, as in yak_tpu."""
+    flag = os.environ.get("YAK_TPU_MESH", "auto")
+    if flag == "0" or k > 31:
+        return None
+    from yak_tpu_torch.parallel.mesh import FORCED_SHARDS, make_mesh
+
+    n = torch.cuda.device_count() if device.type == "cuda" else 0
+    if n >= 2:
+        return make_mesh(1 << (n.bit_length() - 1))
+    if flag == "1":
+        return make_mesh(devices=[device] * FORCED_SHARDS)
+    return None
+
+
+def _mesh_table(t, mesh):
+    """A restored KmerTable dealt onto the mesh (shard d owns the hashes
+    h with h & (D-1) == d)."""
+    from yak_tpu_torch.parallel.mesh import MeshTable
+
+    h, c = t.items()
+    return MeshTable.from_items(mesh, t.k, t.pre, h, c)
+
+
 def main_count(argv, device):
-    from yak_tpu_torch.models.count import CountOpts, count
+    from yak_tpu_torch.models.count import CountOpts, count, literal_two_pass
     o, pos = _getopt(argv, {"k": 1, "p": 1, "K": 1, "t": 1, "b": 1, "H": 1,
                             "o": 1, "X": 0})
     opt = CountOpts(device=str(device))
@@ -138,7 +171,14 @@ def main_count(argv, device):
     if opt.k >= 32:
         print("WARNING: counts are inexact if -k is greater than 31",
               file=sys.stderr)
-    h = count(pos, opt)
+    # the literal -b two-pass stays on one device (the mesh's Bloom
+    # slices are not yet ported); its output is the same bytes
+    mesh = _auto_mesh(opt.k, device)
+    if mesh is not None and not literal_two_pass(pos, opt):
+        from yak_tpu_torch.parallel.mesh import count_mesh
+        h = count_mesh(pos, opt, mesh)
+    else:
+        h = count(pos, opt)
     if fn_out:
         h.dump(fn_out)
     return 0
@@ -317,7 +357,11 @@ def main_qv(argv, device):
     if len(pos) < 2:
         return _usage(["Usage: yak_tpu_torch qv [options] <kmer.hash> "
                        "<seq.fa>"])
-    qv_main(opt, KmerTable.restore(pos[0], device), pos[1])
+    ch = KmerTable.restore(pos[0], device)
+    mesh = _auto_mesh(ch.k, device)
+    if mesh is not None:
+        ch = _mesh_table(ch, mesh)
+    qv_main(opt, ch, pos[1])
     return 0
 
 

@@ -89,6 +89,15 @@ def _same_stream(a, b):
         return False
 
 
+def literal_two_pass(files, opt):
+    """Whether `count` runs the literal -b protocol over `files`: -b is
+    given and the same-file shortcut does not apply (see count)."""
+    second = files[1] if len(files) >= 2 else files[0]
+    return opt.bf_shift > 0 and not (
+        _same_stream(files[0], second)
+        and not os.environ.get("YAK_TPU_BLOOM_TWO_PASS"))
+
+
 def count(files, opt):
     """Full `yak count` semantics including the `-b` two-pass protocol
     (main.c:53-60): pass 1 Bloom-gated; destroy the filter, zero the
@@ -104,17 +113,16 @@ def count(files, opt):
     test is on paths, not content: two paths to the same data take the
     literal protocol, whose table is the same."""
     _check_supported(opt)
-    second = files[1] if len(files) >= 2 else files[0]
-    if (opt.bf_shift > 0 and _same_stream(files[0], second)
-            and not os.environ.get("YAK_TPU_BLOOM_TWO_PASS")):
+    if opt.bf_shift <= 0:
+        return count_file(files[0], opt)
+    if not literal_two_pass(files, opt):
         table = count_file(files[0], replace(opt, bf_shift=0))
     else:
         table = count_file(files[0], opt)
-        if opt.bf_shift <= 0:
-            return table
         table.destroy_bf()
         table.clear_counts()
-        count_file(second, opt, table=table)
+        count_file(files[1] if len(files) >= 2 else files[0], opt,
+                   table=table)
     table.shrink(2, 1023)
     print(f"[M::count] {table.tot} distinct k-mers after shrinking",
           file=sys.stderr)

@@ -15,9 +15,15 @@ through the sort kernel (`run_join_lookup`'s and
 `run_qv_join_post_psort`'s sorts); with -E the default post stays, as
 in the JAX package.
 
-Not ported here: the mesh path (`_run_qv_fused_mesh`), the seg-payload
-variant and the per-position scan path (`_run_qv_scan`, models/scan.py):
-ROADMAP.md Queue 1.
+On a `parallel.mesh.MeshTable` (`_run_qv_fused_mesh`) each group of
+chunks takes the routed lookup (`parallel.mesh.mesh_routed_groups`) in
+place of `lookup_chunk`; the post, the carry and the host text are the
+same, the carry following each chunk to its shard's device, so the
+output is the same bytes, -p and -E lines included (`yak_tpu` takes its
+per-position scan path for -E on a mesh).
+
+Not ported here: the seg-payload variant and the per-position scan path
+(`_run_qv_scan`, models/scan.py): ROADMAP.md Queue 1.
 """
 
 import math
@@ -31,6 +37,7 @@ from yak_tpu_torch import YAK_N_COUNTS
 from yak_tpu_torch.io.chunks import ChunkSource
 from yak_tpu_torch.io.pack import pack_chunk_planes
 from yak_tpu_torch.ops import countstep
+from yak_tpu_torch.parallel.mesh import MeshTable, mesh_routed_groups
 from yak_tpu_torch.utils import Progress
 
 _Q = 4.3429448190325175  # 10 / ln 10
@@ -118,11 +125,11 @@ def run_qv(opt, fn, table, out=None):
     the accumulation (per-seg reductions, min_frac gating, the
     spanning-sequence carry, the global histogram) stays on the table's
     device; -p and -E fetch the per-seg scalars and the error-k-mer
-    markers of each chunk."""
+    markers of each chunk.  `table` may be a MeshTable (module note)."""
     out = out or sys.stdout
     k = table.k
     table.flush()
-    dev = table.device
+    dev = table.mesh[0] if isinstance(table, MeshTable) else table.device
     chunk = max(1 << 14, min(int(opt.chunk_size), 1 << 23))
     chunk = -(-chunk // 1024) * 1024
     M = chunk - k + 1
@@ -130,7 +137,6 @@ def run_qv(opt, fn, table, out=None):
              torch.tensor(-1, dtype=torch.int32, device=dev),
              torch.tensor(0, dtype=torch.int32, device=dev),
              torch.zeros(YAK_N_COUNTS, dtype=torch.int64, device=dev))
-    carry_gi = None            # host mirror: which seq the carry is
     h_carry = [0, 0]           # host mirror of (tot, non0) for -p
     blocks = []                # per-seq output text, input order
     carry_ek = [""]            # EK rows of the chunk-spanning seq
@@ -138,20 +144,11 @@ def run_qv(opt, fn, table, out=None):
     psort = countstep.psort_enabled()
     prog = Progress("run_qv")
 
-    for packed in ChunkSource(fn, chunk, k, with_meta="records"):
+    for packed, vals, valid, meta_d, info, ns in _qv_lookups(
+            fn, table, chunk, M, opt.min_len, psort):
         nseq = len(packed.rec_gid)
-        if not nseq:
-            continue
-        ns = max(1 << 12, 1 << int(max(nseq - 1, 1)).bit_length())
-        meta, info, carry_gi = _qv_chunk_meta(packed, M, ns, carry_gi,
-                                              opt.min_len)
-        # both uploads before the chunk's device work is queued: a
-        # blocking host-to-device copy waits for the work on the stream
-        meta_d = torch.from_numpy(meta).to(dev)
-        carg = pack_chunk_planes(packed, dev)
-        vals, valid = countstep.lookup_chunk(carg, k, table.keys,
-                                             table.cnt, table.size,
-                                             psort=psort)
+        # the carry follows the chunks to their shards' devices
+        state = tuple(t.to(vals.device) for t in state)
         outs = countstep.qv_join_post(vals, valid, meta_d, state, ns, M,
                                       float(opt.min_frac), want_ek,
                                       psort=psort and not want_ek)
@@ -192,6 +189,44 @@ def run_qv(opt, fn, table, out=None):
         prog.line(f"processed {nseq} sequences")
     out.write("".join(blocks))
     return state[0].cpu().numpy()
+
+
+def _qv_lookups(fn, table, chunk, M, min_len, psort):
+    """Each chunk of `fn` that holds records, in order, with its lookup
+    and its meta row on the lookup's device: (packed, vals, valid,
+    meta_d, info, ns) (`_qv_chunk_meta`, whose carry mirror needs the
+    chunks in order).  One device: the chunk's `lookup_chunk`, its meta
+    uploaded first, as a blocking host-to-device copy waits for the work
+    on the stream.  A MeshTable: a group's routed lookups, then its
+    chunks' metas by copies from pinned memory, which do not."""
+    carry = [None]             # host mirror: which seq the carry is
+
+    def meta(packed, dev, non_blocking):
+        ns = max(1 << 12,
+                 1 << int(max(len(packed.rec_gid) - 1, 1)).bit_length())
+        m, info, carry[0] = _qv_chunk_meta(packed, M, ns, carry[0], min_len)
+        m = torch.from_numpy(m)
+        if non_blocking and dev.type == "cuda":
+            m = m.pin_memory()
+        return m.to(dev, non_blocking=non_blocking), info, ns
+
+    if isinstance(table, MeshTable):
+        for group, vals, valid in mesh_routed_groups(fn, table, chunk,
+                                                     psort=psort):
+            metas = [meta(p, v.device, True) for p, v in zip(group, vals)]
+            yield from ((p, v, ok) + m
+                        for p, v, ok, m in zip(group, vals, valid, metas))
+        return
+    dev = table.device
+    for packed in ChunkSource(fn, chunk, table.k, with_meta="records"):
+        if not len(packed.rec_gid):
+            continue
+        meta_d = meta(packed, dev, False)
+        carg = pack_chunk_planes(packed, dev)
+        vals, valid = countstep.lookup_chunk(carg, table.k, table.keys,
+                                             table.cnt, table.size,
+                                             psort=psort)
+        yield (packed, vals, valid) + meta_d
 
 
 def _sq_text(name, L, tot, non0, k):

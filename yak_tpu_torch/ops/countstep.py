@@ -97,8 +97,12 @@ def extract(carg, k):
     """Hashes and validity of one fold's chunks.
 
     carg is ("periodic", (plo, phi, wvec), L, R) for the fixed-length-read
-    layout (2 planes on the wire) or ("planes", (plo, phi, pnn), L) for
-    the general layout (3 planes)."""
+    layout (2 planes on the wire), ("planes", (plo, phi, pnn), L) for
+    the general layout (3 planes), or ("hashes", (h, valid)) for a batch
+    whose hashes are already extracted (a mesh shard's routed batch,
+    `table.KmerTable.fold_hashes`), returned as it is."""
+    if carg[0] == "hashes":
+        return carg[1]
     if carg[0] == "periodic":
         _, (plo, phi, wvec), L, R = carg
         return extract_periodic(plo, phi, wvec, k, L, R)

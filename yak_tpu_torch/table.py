@@ -207,16 +207,43 @@ class KmerTable:
                     [p[j] for p in pl3s] + [padn if j == 2 else padw]), dev)
                 for j in range(3)), L)
         self._mark("h2d")
+        self._queue_fold(carg, g * max(L - self.k + 1, 1),
+                         self.bf is not None and self._pend_create)
+
+    def fold_hashes(self, h, valid, create_new=True):
+        """Fold one batch of raw hashes (int64 [B] on the table's device;
+        k >= 32 the u64 bit patterns) with its validity (bool [B]) through
+        the kernel engine, as a fold of code chunks goes: the previous
+        fold settled one fold late, the capacity prior, the engine that
+        `countstep.psort_enabled` names, the batch kept for an overflow
+        replay.  create_new=False increments existing keys only
+        (htab.c:71-75).  This is how a shard of a `parallel.mesh.MeshTable`
+        folds the hashes routed to it (the per-chip sort and merge-reduce
+        of yak_tpu's mesh count step).  The fold is ungated: a table with
+        a Bloom filter refuses a creating fold."""
+        if self.bf is not None and create_new:
+            raise NotImplementedError(
+                "fold_hashes through the Bloom gate is not yet ported: "
+                "ROADMAP.md Queue 1 step 6, 'the literal -b two-pass on a "
+                "mesh'")
+        if self._pend_codes or self._pend or self._pend_create != create_new:
+            self.flush()
+            self._pend_create = create_new
+        self._mark("start")
+        self._queue_fold(("hashes", (h, valid)), h.numel(), False)
+
+    def _queue_fold(self, carg, lanes, gated):
+        """Queue one fold of `carg` (`countstep.extract`'s argument) over
+        `lanes` lanes after settling the previous one, and keep what an
+        overflow replay needs."""
         self._check_last_step()  # one step late: previous fold settled
-        # capacity prior (only without an explicit cap hint): a group of
+        # capacity prior (only without an explicit cap hint): a fold of
         # L lanes creates at most L keys and typically ~L/2 distinct
-        lanes = g * max(L - self.k + 1, 1)
         if not self._cap_hinted and self.cap * 2 < lanes:
             need = 1 << max((lanes // 2 - 1).bit_length(), 14)
             self.keys, self.cnt, self.size = st.grow(
                 self.keys, self.cnt, self.size, need)
         prev = (self.keys, self.cnt, self.size)
-        gated = self.bf is not None and self._pend_create
         # the engine is read at each fold (table._pallas_mode)
         psort = countstep.psort_enabled(fold=True, gated=gated,
                                         wide=self.wide)
@@ -373,14 +400,31 @@ class KmerTable:
         htab.c:241-285; cntasm).  The selected keys are compacted to an
         ascending batch (unique, INT64_MAX after them) and folded in by
         the merge-reduce in count mode, its counts saturating at 1023;
-        the union's capacity is reserved first."""
-        self._check_same(other, "merge")
+        the union's capacity is reserved first.
+
+        `other` may be of another k or pre, as in yak_tpu: keys are full
+        hashes, and pre only lays out a dump's shards, so the table keeps
+        its own k and pre (cntasm -i: the -i table's).  Its raw hashes
+        are taken in this table's encoding: wide-encoded into a k >= 32
+        table (in order, as a k <= 31 hash is below 2^62), and into a
+        k <= 31 one as the raw 64 bits, sorted again (yak_tpu's packed
+        merge would drop their top bit; no command merges so)."""
+        if self.device != other.device:
+            raise ValueError(f"merge: a table on {other.device} against one "
+                             f"on {self.device}")
         cmax = cmax if cmin <= cmax <= YAK_MAX_COUNT else YAK_MAX_COUNT
         self.flush()
         other.flush()
         sel = (other.cnt >= cmin) & (other.cnt <= cmax)
         bkeys, _c, _n = st.compact_where(other.keys, other.cnt, other.size,
                                          sel)
+        if other.wide != self.wide:
+            raw = other._raw(bkeys)
+            bkeys = torch.where(bkeys != INT64_MAX,
+                                encode_wide(raw) if self.wide else raw,
+                                INT64_MAX)
+            if other.wide:
+                bkeys = torch.sort(bkeys).values
         self._ensure_capacity(self.tot + other.tot)
         okeys, ocnt, new_size, _n_new = merge.merge_reduce(
             self.keys, self.cnt, self.size, bkeys, create=True,
