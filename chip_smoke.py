@@ -10,8 +10,9 @@ Phases, in order; any failure exits non-zero:
      versions;
   2. build the hand-written kernels (csrc/merge_reduce.cu, which holds
      the merge-reduce and merge-JOIN entry points, csrc/compact.cu and
-     csrc/sort.cu) with one nvcc each, side by side, into
-     build/yak_tpu_torch/;
+     csrc/sort.cu) with one nvcc each, and the host library
+     (native/fastx.cpp and native/khlayout.cpp) with g++, side by side,
+     into build/yak_tpu_torch/; the host library must load;
   3. kernel vs its plain torch version on the card: the kernel's tile
      must be the fixtures' CUDA_TILE (tests/torch_merge_cases.py and
      tests/torch_join_cases.py), so that their runs sit on its edges;
@@ -191,10 +192,33 @@ Phases, in order; any failure exits non-zero:
      on both engines through the routed lookup (each owner shard sorts
      and JOINs its queries, the values go home by slot); phase 7's gates;
      every captured per-shard JOIN and sort call held against its plain
-     version; per group the spans beside phase 7's one-device figures.
+     version; per group the spans beside phase 7's one-device figures;
+ 31. the native reader at real size: phase 4's reads as FASTQ, gzip
+     FASTQ and phase 10's one-line FASTA, each counted by
+     models.count.count (chunk 2^23) through the native reader
+     (native/fastx.cpp, built in phase 2 by g++ beside the nvcc builds;
+     ChunkSource must have taken it): phase 4's gates, every merge call
+     held against its plain version; the FASTA and the FASTQ again
+     through the Python reader; for each, the wall, the host seconds
+     inside the reader and the device's busy and idle shares, reader
+     beside reader; then qv seed 101 through the native reader against
+     the native FASTA count's table (phase 7's gates);
+ 32. -X at real size: `count -X -k31` of the reads, `count -X -k31 -b24`
+     with pass 1 the reads and pass 2 the seed-101 qv reads (two
+     different files: the serial-exact Bloom gate in pass 1), and `count
+     -X -k33`, through the CLI in this process: each dump passes its
+     cross-check against the table and its md5 must be EXACT_DIGEST's;
+     every captured count, weighted and wide merge call is held against
+     its plain version; `count -X -b37` must exit 1 (the packed rank key
+     would not fit, as yak_tpu refuses it) and `-X -b24` under
+     YAK_TPU_PSORT=1 must raise.
+
+Every path that reads a sequence file takes the native reader, as
+`yak_tpu` does; phases 3, 4 and 11 fold chunks packed by this script.
 
 The md5 gates of phases 24-26 (ALGEBRA_DIGEST) are what `yak_tpu`
-prints on the CPU for the same seeded inputs (tools/algebra_gates.py).
+prints on the CPU for the same seeded inputs (tools/algebra_gates.py),
+and those of phase 32 (EXACT_DIGEST) likewise (tools/exact_gates.py).
 
 The last two lines of stdout are a JSON line of per-kernel results
 (`launches` summed over the paths that drive the kernel, each with the
@@ -736,12 +760,16 @@ def write_lookup_inputs(d, reads):
     write_fasta(paths["contigs"], make_contigs(genome),
                 [b"ctg%d" % i for i in range(N_CONTIGS)])
     paths["reads"] = os.path.join(d, "reads.fq")
+    write_fastq(paths["reads"], reads)
+    return paths
+
+
+def write_fastq(path, reads):
     alph = np.frombuffer(b"ACGT", np.uint8)
     qual = b"I" * READ_LEN
-    with open(paths["reads"], "wb") as f:
+    with open(path, "wb") as f:
         f.write(b"".join(b"@r%d\n%s\n+\n%s\n" % (i, alph[r].tobytes(), qual)
                          for i, r in enumerate(reads)))
-    return paths
 
 
 def write_qv_sets(d, seeds):
@@ -1236,7 +1264,7 @@ def fold_timeline():
 
 def fold_split(marks, wall_s, card, what):
     """Per-fold device spans of a marked run, their sums by phase, and
-    the device busy and idle share of the wall."""
+    the device busy and idle share of the wall; returns the busy ms."""
     folds, cur = [], None
     for m in marks:
         if m[0] == "start":
@@ -1257,6 +1285,7 @@ def fold_split(marks, wall_s, card, what):
         for n, v in by_phase.items()) + f"; device busy {busy:.4f} ms of "
         f"{wall_s * 1e3:.4f} ms wall, idle {1 - busy / (wall_s * 1e3):.4f} "
         f"[{card}]")
+    return busy
 
 
 def run_bloom(files, bf_shift, dev, cap_log2=23):
@@ -1365,6 +1394,13 @@ def replay_paths(dev, chunks, d):
     return counts, merges
 
 
+def merge_mode(kw):
+    """The kernels-line entry of a merge-reduce call by its keywords."""
+    return ("merge_reduce_wide" if kw.get("wide") else
+            "merge_reduce_weighted" if kw.get("weights") is not None
+            else "merge_reduce")
+
+
 def mode_kernel_checks(dev, merges, compacts, card):
     """Phase 13: the mode cases, then every captured call; returns the
     kernels-line entries of the weighted and wide modes, the count
@@ -1378,12 +1414,6 @@ def mode_kernel_checks(dev, merges, compacts, card):
 
     err = {"merge_reduce": 0, "merge_reduce_weighted": 0,
            "merge_reduce_wide": 0}
-
-    def mode_of(kw):
-        return ("merge_reduce_wide" if kw.get("wide") else
-                "merge_reduce_weighted" if kw.get("weights") is not None
-                else "merge_reduce")
-
     for name, build in MODE_CASES.items():
         hs, cs, batch, valid, w, cap, create, wide = build()
         tk, tc = sorted_table(hs, cs, cap, wide)
@@ -1394,7 +1424,7 @@ def mode_kernel_checks(dev, merges, compacts, card):
         kw = {"weights": None if bw is None else torch.from_numpy(bw).to(dev),
               "wide": wide}
         e = compare(merge, args, create, name, **kw)
-        err[mode_of(kw)] = max(err[mode_of(kw)], e)
+        err[merge_mode(kw)] = max(err[merge_mode(kw)], e)
         ok, oc, ns, nn = merge.merge_reduce(*args, create, **kw)
         wk, wc, wsize, wnew = expected(hs, cs, batch, valid, cap, create, w,
                                        wide)
@@ -1406,7 +1436,7 @@ def mode_kernel_checks(dev, merges, compacts, card):
     n_calls = 0
     for path, calls in merges.items():
         for i, (args, kw) in enumerate(calls):
-            mode = mode_of(kw)
+            mode = merge_mode(kw)
             e = compare(merge, args[:4], args[4], f"{path} merge {i}", **kw)
             err[mode] = max(err[mode], e)
             n_calls += 1
@@ -2842,6 +2872,248 @@ def mesh_phases(dev, card, count_items, reads, chunks, results, by_path):
             os.unlink(os.path.join(d, name))
         os.rmdir(d)
 
+# -- phases 31-32: the native reader and -X at real size -------------------
+
+# the -X configurations of phase 32 (count flags, input files) and the md5
+# of each dump, as `yak_tpu` writes it on the CPU for the same seeded
+# inputs (tools/exact_gates.py)
+EXACT_CONFIGS = {"k31": (["-k31"], ("reads",)),
+                 "b24": (["-k31", "-b24"], ("reads", "qv101")),
+                 "k33": (["-k33"], ("reads",))}
+EXACT_DIGEST = {"k31": "e7234707ce7b", "b24": "be368a48d47b",
+                "k33": "c3ed10119581"}
+
+
+def exact_files(d, reads):
+    """The inputs of phase 32 (numpy only; also what tools/exact_gates.py
+    gives `yak_tpu`): phase 4's reads as phase 10's one-line FASTA, and
+    bench.py's seed-101 qv read set (400,000 error-free reads of the
+    genome), pass 2 of the -b24 configuration."""
+    paths = {"reads": os.path.join(d, "reads.fa")}
+    write_fasta(paths["reads"], reads)
+    paths["qv101"] = write_qv_sets(d, (101,))[101]
+    return paths
+
+
+@contextlib.contextmanager
+def reader_spy(module, force_python=False):
+    """Inside the block, `module`'s ChunkSource records the reader each
+    source took and the host seconds its consumer spent inside the
+    source's iterator (for the Python reader the parse and the packing,
+    for the native one the wait for its parser thread and the copies
+    out of its buffers); force_python: every source takes the Python
+    reader.  Yields {"readers": [...], "secs": s, "chunks": n}."""
+    from yak_tpu_torch.io.chunks import ChunkSource
+
+    rec = {"readers": [], "secs": 0.0, "chunks": 0}
+
+    class Spy(ChunkSource):
+        def __init__(self, *args, **kw):
+            if force_python:
+                kw["force_python"] = True
+            super().__init__(*args, **kw)
+            rec["readers"].append(self.reader)
+
+        def __iter__(self):
+            it = super().__iter__()
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    packed = next(it)
+                except StopIteration:
+                    rec["secs"] += time.perf_counter() - t0
+                    return
+                rec["secs"] += time.perf_counter() - t0
+                rec["chunks"] += 1
+                yield packed
+
+    real = module.ChunkSource
+    module.ChunkSource = Spy
+    try:
+        yield rec
+    finally:
+        module.ChunkSource = real
+
+
+def check_mode_merges(calls, label, results):
+    """Kernel vs plain on every captured merge-reduce call, each in its
+    mode (count, weighted or wide), into the kernels line's errors."""
+    from yak_tpu_torch.ops import merge
+
+    for i, (args, kw) in enumerate(calls):
+        create = kw.get("create", args[4] if len(args) > 4 else True)
+        r = results[merge_mode(kw)]
+        r["max_abs_err"] = max(r["max_abs_err"], compare(
+            merge, args[:4], create, f"{label} merge {i}",
+            weights=kw.get("weights"), wide=kw.get("wide", False)))
+    log(f"  {label}: kernel == plain on {len(calls)} captured merge calls")
+
+
+def reader_paths(dev, card, d, paths, reads, results, by_path):
+    """Phase 31: phase 4's reads as FASTQ, gzip FASTQ and phase 10's
+    one-line FASTA, each counted by models.count.count through the native
+    reader (phase 4's gates; every merge call held against its plain
+    version), the FASTA and the FASTQ again through the Python reader;
+    then qv seed 101 through the native reader against the native FASTA
+    count's table.  Prints, reader beside reader, the wall, the host
+    time inside the reader and the device's busy and idle shares."""
+    import gzip
+
+    from yak_tpu_torch.models import count as count_mod
+    from yak_tpu_torch.models import qv as qv_mod
+
+    paths = {"fasta": paths["reads"], 101: paths["qv101"],
+             "fastq": os.path.join(d, "reads.fq")}
+    write_fastq(paths["fastq"], reads)
+    paths["fastq.gz"] = paths["fastq"] + ".gz"
+    with open(paths["fastq"], "rb") as f, \
+            gzip.open(paths["fastq.gz"], "wb", compresslevel=1) as g:
+        g.write(f.read())
+    n_kmers = N_READS * (READ_LEN - K + 1)
+    walls, table = {}, None
+    for reader, fmt in (("native", "fastq"), ("native", "fastq.gz"),
+                        ("native", "fasta"), ("python", "fasta"),
+                        ("python", "fastq")):
+        label = f"{reader} reader {fmt}"
+        reset_counts()
+        with fold_timeline() as tl, \
+                captured("merge", "merge_reduce") as ms, \
+                reader_spy(count_mod, reader == "python") as rec:
+            t0 = time.perf_counter()
+            with contextlib.redirect_stderr(io.StringIO()):
+                t = count_mod.count([paths[fmt]], count_mod.CountOpts(
+                    k=K, chunk_size=1 << 23, device=str(dev)))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        by_path[label] = read_counts()
+        if rec["readers"] != [reader]:
+            raise AssertionError(f"{label}: ChunkSource took "
+                                 f"{rec['readers']}")
+        check_gates(t, label)
+        check_launched(by_path[label], ("merge_reduce",), label)
+        busy = fold_split(tl.marks, wall, card, label)
+        check_mode_merges(ms, label, results)
+        walls[label] = (wall, rec["secs"], busy)
+        log(f"  {label}: wall {wall:.4f} s ({n_kmers / wall:.1f} k-mers/s), "
+            f"{rec['secs']:.4f} s of it inside the reader over "
+            f"{rec['chunks']} chunks; device busy {busy:.4f} ms, idle "
+            f"{1 - busy / (wall * 1e3):.4f} [{card}]")
+        if label == "native reader fasta":
+            table = t
+        del t, ms
+    for fmt in ("fasta", "fastq"):
+        (nw, ns, nb), (pw, ps, pb) = (walls[f"{r} reader {fmt}"]
+                                      for r in ("native", "python"))
+        log(f"  {fmt}: native reader wall {nw:.4f} s (reader {ns:.4f} s, "
+            f"idle {1 - nb / (nw * 1e3):.4f}) against the Python reader's "
+            f"{pw:.4f} s (reader {ps:.4f} s, idle "
+            f"{1 - pb / (pw * 1e3):.4f}) [{card}]")
+    reset_counts()
+    with reader_spy(qv_mod) as rec:
+        qv_run(table, paths, 101, card)
+    by_path["native reader qv"] = read_counts()
+    check_launched(by_path["native reader qv"], ("merge_join",),
+                   "native reader qv")
+    if rec["readers"] != ["native"]:
+        raise AssertionError(f"qv: ChunkSource took {rec['readers']}")
+    log(f"  qv seed 101 through the native reader: {rec['secs']:.4f} s "
+        f"inside the reader over {rec['chunks']} chunks")
+
+
+def exact_paths(card, d, paths, results, by_path):
+    """Phase 32: `count -X` through the CLI in this process on the card,
+    for each of EXACT_CONFIGS (k=31; -b24 over the reads and then the
+    seed-101 reads, two different files, pass 1 through the serial-exact
+    gate; k=33): the dump's built-in cross-check against the table must
+    pass and its md5 must be EXACT_DIGEST's; every captured count,
+    weighted and wide merge call is held against its plain version.
+    Then -X -b37 must be refused (exit 1, yak_tpu's message: its packed
+    rank key would not fit) and -X -b24 under psort must raise."""
+    from yak_tpu_torch import cli
+    from yak_tpu_torch.io import exactdump
+
+    needed = {"k31": ("merge_reduce",),
+              "b24": ("merge_reduce_weighted", "merge_reduce"),
+              "k33": ("merge_reduce_wide",)}
+    real_dump = exactdump.dump_yak_exact
+    for name, (flags, files) in EXACT_CONFIGS.items():
+        label = f"-X {name}"
+        out = os.path.join(d, f"x_{name}.yak")
+        dump_s = []
+
+        def timed_dump(*args, **kw):
+            t0 = time.perf_counter()
+            real_dump(*args, **kw)
+            dump_s.append(time.perf_counter() - t0)
+
+        reset_counts()
+        exactdump.dump_yak_exact = timed_dump
+        try:
+            with fold_timeline() as tl, \
+                    captured("merge", "merge_reduce") as ms, \
+                    contextlib.redirect_stderr(io.StringIO()) as err:
+                t0 = time.perf_counter()
+                rc = cli.main(["count", "-X", *flags, "--device", "cuda",
+                               "-o", out, *(paths[f] for f in files)])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        finally:
+            exactdump.dump_yak_exact = real_dump
+        if rc != 0:
+            raise AssertionError(f"{label}: exit {rc}: "
+                                 f"{err.getvalue()[-2000:]}")
+        by_path[label] = read_counts()
+        md5 = file_md5(out)
+        log(f"  {label} ({' '.join(flags)} of {', '.join(files)}): dump md5 "
+            f"{md5} (want {EXACT_DIGEST[name]}), cross-check passed; wall "
+            f"{wall:.4f} s, of it the replay, cross-check and dump "
+            f"{dump_s[0]:.4f} s [{card}]")
+        if md5 != EXACT_DIGEST[name]:
+            raise AssertionError(f"{label}: md5 {md5} != "
+                                 f"{EXACT_DIGEST[name]}")
+        check_launched(by_path[label], needed[name], label)
+        fold_split(tl.marks, wall - dump_s[0], card, label)
+        check_mode_merges(ms, label, results)
+        os.unlink(out)
+        del ms
+    out = os.path.join(d, "x_b37.yak")
+    with contextlib.redirect_stderr(io.StringIO()) as err:
+        rc = cli.main(["count", "-X", "-k31", "-b37", "--device", "cuda",
+                       "-o", out, paths["reads"], paths["qv101"]])
+    if rc != 1 or "cannot engage the serial-exact Bloom gate" not in \
+            err.getvalue() or os.path.exists(out):
+        raise AssertionError(f"-X -b37 was not refused: exit {rc}, "
+                             f"{err.getvalue()[-2000:]}")
+    log("  -X -b37: refused, exit 1: " + next(
+        line for line in err.getvalue().splitlines() if "ERROR" in line))
+    torch.cuda.empty_cache()
+    try:
+        with psort_engine(), contextlib.redirect_stderr(io.StringIO()):
+            cli.main(["count", "-X", "-k31", "-b24", "--device", "cuda",
+                      "-o", out, paths["reads"], paths["qv101"]])
+    except RuntimeError as e:
+        log(f"  -X -b24 under psort: refused: {e}")
+    else:
+        raise AssertionError("-X -b24 under YAK_TPU_PSORT=1 was not "
+                             "refused")
+
+
+def native_phases(dev, card, reads, results, by_path):
+    """Phases 31-32."""
+    d = tempfile.mkdtemp(prefix="yak_tpu_torch_native_")
+    try:
+        t0 = time.perf_counter()
+        paths = exact_files(d, reads)
+        log(f"  inputs written in {time.perf_counter() - t0:.3f} s")
+        phase("31. the native reader at real size")
+        reader_paths(dev, card, d, paths, reads, results, by_path)
+        phase("32. -X (the byte-exact dump) at real size")
+        exact_paths(card, d, paths, results, by_path)
+    finally:
+        for name in os.listdir(d):
+            os.unlink(os.path.join(d, name))
+        os.rmdir(d)
+
 
 def main():
     if not torch.cuda.is_available():
@@ -2859,9 +3131,20 @@ def main():
         f"{torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} "
         f"device(s)")
 
-    phase("2. build (one nvcc per kernel source, side by side)")
+    phase("2. build (one nvcc per kernel source and g++ for the host "
+          "library, side by side)")
+    from concurrent.futures import ThreadPoolExecutor
+
+    from yak_tpu_torch import native
+
     t0 = time.perf_counter()
-    built = cuda_build.load_all(["merge_reduce", "compact", "sort"])
+    with ThreadPoolExecutor(1) as pool:
+        host_lib = pool.submit(native.build)
+        built = cuda_build.load_all(["merge_reduce", "compact", "sort"])
+        log(f"  host library {host_lib.result().name} (native/fastx.cpp, "
+            f"native/khlayout.cpp)")
+    if not native.available():
+        raise AssertionError("the native library does not load")
     for name, (_lib, secs) in built.items():
         log(f"  built {cuda_build.library_path(name).name} in {secs:.3f} s")
     log(f"  build wall {time.perf_counter() - t0:.3f} s")
@@ -2968,6 +3251,7 @@ def main():
     trio_phases(dev, card, count_items, reads, results, by_path)
     algebra_phases(dev, card, count_items, reads, chunks, results, by_path)
     mesh_phases(dev, card, count_items, reads, chunks, results, by_path)
+    native_phases(dev, card, reads, results, by_path)
     torch.cuda.synchronize()
 
     print(json.dumps({"kernels": [

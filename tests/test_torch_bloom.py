@@ -160,16 +160,23 @@ def test_gated_fold_overflow_replay_matches_jax(tmp_path, bf_shift):
 
 def test_filter_lifecycle():
     """A filter only where the reference makes one (9 <= bf_shift - pre
-    <= 55); destroy_bf drops it; raw hash batches through a live filter
-    are refused rather than counted ungated."""
+    <= 55); destroy_bf drops it; a raw hash batch through a live filter
+    is gated as yak_tpu gates it: a key's first sighting feeds the
+    filter, the rest count (four sightings of hash 0 count 3), and an
+    increment-only batch creates nothing."""
     assert KmerTable(31, device="cpu", bf_shift=18).bf is None
     assert KmerTable(31, device="cpu", bf_shift=10).bf is None
     t = KmerTable(31, device="cpu", bf_shift=19)
+    j = JaxTable(31, bf_shift=19)
     assert t.bf is not None and t.bf.shape == (1 << 14,)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t.insert_hashes(torch.zeros(4, dtype=torch.int64),
-                        torch.ones(4, dtype=torch.bool))
     t.insert_hashes(torch.zeros(4, dtype=torch.int64),
+                    torch.ones(4, dtype=torch.bool))
+    j.insert_hashes(jnp.zeros(4, jnp.uint64), jnp.ones(4, bool))
+    t.insert_hashes(torch.ones(4, dtype=torch.int64),
                     torch.ones(4, dtype=torch.bool), create_new=False)
+    for a, b in zip(t.items(), j.items()):
+        np.testing.assert_array_equal(a, b)
+    assert t.items()[1].tolist() == [3]
+    np.testing.assert_array_equal(_filter_u32(t.bf), _filter_u32(j.bf))
     t.destroy_bf()
-    assert t.bf is None and t.tot == 0
+    assert t.bf is None and t.tot == 1

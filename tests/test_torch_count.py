@@ -12,14 +12,17 @@ import os
 import shutil
 import subprocess
 import sys
+from dataclasses import replace
 
 import numpy as np
 import pytest
 
+from yak_tpu import cli as jax_cli
 from yak_tpu.io.chunks import ChunkSource as JaxChunkSource
 from yak_tpu.models import count as jcount
 from yak_tpu.table import KmerTable as JaxTable
 from yak_tpu_torch import cli
+from yak_tpu_torch.io import yakfmt
 from yak_tpu_torch.io.chunks import ChunkSource
 from yak_tpu_torch.io.pack import detect_periodic_meta
 from yak_tpu_torch.models import count as pcount
@@ -151,37 +154,55 @@ def test_restore_roundtrip(inputs, tmp_path):
 
 
 def test_unported_options_raise(inputs, tmp_path):
-    """-X (the byte-exact khashl dump) is the count option still
-    refused: by the model with the ROADMAP item, by the CLI with exit
-    code 1 and no output file."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pcount.count([inputs["fastq"]], pcount.CountOpts(bf_shift=20,
-                                                          exact=True,
-                                                          device="cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pcount.count_file(inputs["fastq"], pcount.CountOpts(k=33, exact=True,
-                                                            device="cpu"))
-    out = tmp_path / "x.yak"
-    err = io.StringIO()
-    with contextlib.redirect_stderr(err):
-        ret = cli.main(["count", "-X", "-b20", "--device", "cpu", "-o",
-                        str(out), inputs["fastq"]])
-    assert ret == 1 and "not yet ported" in err.getvalue()
-    assert not out.exists()
+    """-X (the byte-exact khashl dump), the last count option the port
+    refused, now runs: CountOpts(exact=True) counts the same table as
+    without it where no gate runs (the same-file -b shortcut, k = 33
+    without -b), and the CLI's -X -b20 exits 0 with a dump of the
+    default dump's items in other bytes (tests/test_torch_exact.py holds
+    the -X bytes against yak_tpu's)."""
+    for opt in (pcount.CountOpts(bf_shift=20, chunk_size=CHUNK, device="cpu"),
+                pcount.CountOpts(k=33, chunk_size=CHUNK, device="cpu")):
+        with contextlib.redirect_stderr(io.StringIO()):
+            a = pcount.count([inputs["fastq"]], opt)
+            b = pcount.count([inputs["fastq"]], replace(opt, exact=True))
+        for x, y in zip(a.items(), b.items()):
+            np.testing.assert_array_equal(x, y)
+    outs = [tmp_path / "x.yak", tmp_path / "d.yak"]
+    for flags, out in ((["-X"], outs[0]), ([], outs[1])):
+        with contextlib.redirect_stderr(io.StringIO()):
+            assert cli.main(["count", *flags, "-b20", f"-K{CHUNK}",
+                             "--device", "cpu", "-o", str(out),
+                             inputs["fastq"]]) == 0
+    dumps = [yakfmt.restore_yak(str(p)) for p in outs]
+    order = [np.argsort(d[2]) for d in dumps]
+    for j in (2, 3):
+        np.testing.assert_array_equal(dumps[0][j][order[0]],
+                                      dumps[1][j][order[1]])
+    assert outs[0].read_bytes() != outs[1].read_bytes()
 
 
 def test_exact_dump_env_refused(inputs, tmp_path, monkeypatch):
-    """YAK_TPU_EXACT_DUMP set to anything means -X to the JAX package's
-    CLI (yak_tpu/cli.py:99,133), so the port refuses it as it refuses
-    -X: exit code 1, and no dump of other bytes."""
+    """YAK_TPU_EXACT_DUMP set to anything means -X, as in the JAX
+    package's CLI (yak_tpu/cli.py:99,133): the dump is the JAX package's
+    bytes under the same variable, and not the default dump's."""
     monkeypatch.setenv("YAK_TPU_EXACT_DUMP", "1")
-    out = tmp_path / "x.yak"
-    err = io.StringIO()
-    with contextlib.redirect_stderr(err):
-        ret = cli.main(["count", "-k31", f"-K{CHUNK}", "--device", "cpu",
-                        "-o", str(out), inputs["fastq"]])
-    assert ret == 1 and "not yet ported" in err.getvalue()
-    assert not out.exists()
+    outs = [tmp_path / "port.yak", tmp_path / "jax.yak"]
+    for main, dev, out in ((cli.main, ["--device", "cpu"], outs[0]),
+                           (jax_cli.main, [], outs[1])):
+        with contextlib.redirect_stderr(io.StringIO()):
+            assert main(["count", "-k31", f"-K{CHUNK}", *dev, "-o",
+                         str(out), inputs["fastq"]]) == 0
+    assert outs[0].read_bytes() == outs[1].read_bytes()
+    monkeypatch.delenv("YAK_TPU_EXACT_DUMP")
+    assert outs[0].read_bytes() != _default_dump(inputs, tmp_path)
+
+
+def _default_dump(inputs, tmp_path):
+    out = tmp_path / "default.yak"
+    with contextlib.redirect_stderr(io.StringIO()):
+        assert cli.main(["count", "-k31", f"-K{CHUNK}", "--device", "cpu",
+                         "-o", str(out), inputs["fastq"]]) == 0
+    return out.read_bytes()
 
 
 @pytest.fixture(scope="module")

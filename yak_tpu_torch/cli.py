@@ -2,12 +2,12 @@
 
 Port of `yak_tpu/cli.py`: all 13 commands and `groupxy`, with the same
 options, messages and footer (naming yak_tpu_torch).  `count` takes
-`-b`, `-H` and k in [1, 63]; `count -X`, and YAK_TPU_EXACT_DUMP set to
-anything, which means `-X` there, exit 1 with "not yet ported".  The
-lookups (`qv`, `chkerr`, `triobin`, `trioeval`, `inspect`, `sexchr`)
-and `recount`, `subtract` and `isec` take tables of any k in [1, 63];
-`cntasm` refuses k >= 32 and `print` exits 1 on such a table, as in the
-JAX package.
+`-b`, `-H`, k in [1, 63] and `-X` (YAK_TPU_EXACT_DUMP set to anything
+means `-X`), the dump in the reference's khashl slot order, which needs
+the native library (`native/`).  The lookups (`qv`, `chkerr`,
+`triobin`, `trioeval`, `inspect`, `sexchr`) and `recount`, `subtract`
+and `isec` take tables of any k in [1, 63]; `cntasm` refuses k >= 32
+and `print` exits 1 on such a table, as in the JAX package.
 
 The device is chosen explicitly: `--device cuda|cuda:N|cpu` anywhere
 on the command line, else `cuda`.  When CUDA is asked for and absent,
@@ -141,6 +141,8 @@ def main_count(argv, device):
     if "t" in o: opt.n_thread = int(o["t"])
     if "b" in o: opt.bf_shift = int(o["b"])
     if "H" in o: opt.bf_n_hash = _parse_num(o["H"])
+    if "X" in o or os.environ.get("YAK_TPU_EXACT_DUMP"):
+        opt.exact = True
     fn_out = o.get("o")
     if not pos:
         return _usage(["Usage: yak_tpu_torch count [options] <in.fa> "
@@ -158,10 +160,6 @@ def main_count(argv, device):
                        "  -X         byte-exact dump (reference khashl"
                        " slot order)",
                        "  --device D cuda, cuda:N or cpu [cuda]"])
-    if "X" in o or os.environ.get("YAK_TPU_EXACT_DUMP"):
-        print("[E::main] count -X (the byte-exact dump) is not yet ported "
-              "to yak_tpu_torch (see ROADMAP.md)", file=sys.stderr)
-        return 1
     if opt.pre < 10:
         print("ERROR: -p should be at least 10", file=sys.stderr)
         return 1
@@ -171,6 +169,12 @@ def main_count(argv, device):
     if opt.k >= 32:
         print("WARNING: counts are inexact if -k is greater than 31",
               file=sys.stderr)
+    if opt.exact and fn_out:
+        from yak_tpu_torch import native
+        if not native.available():     # the dump's replay needs it
+            raise RuntimeError("-X needs the native library (native/), "
+                               "which did not build or is disabled by "
+                               "YAK_TPU_NO_NATIVE")
     # the literal -b two-pass stays on one device (the mesh's Bloom
     # slices are not yet ported); its output is the same bytes
     mesh = _auto_mesh(opt.k, device)
@@ -180,7 +184,15 @@ def main_count(argv, device):
     else:
         h = count(pos, opt)
     if fn_out:
-        h.dump(fn_out)
+        # -X: the reference's khashl slot order byte for byte
+        # (io/exactdump.py); the default dump is sorted within each
+        # shard (the same content, io/yakfmt.py)
+        if opt.exact:
+            from yak_tpu_torch.io.exactdump import dump_yak_exact
+            dump_yak_exact(fn_out, h, pos, bf_shift=opt.bf_shift,
+                           bf_n_hash=opt.bf_n_hash)
+        else:
+            h.dump(fn_out)
     return 0
 
 

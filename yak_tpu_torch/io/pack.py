@@ -138,18 +138,20 @@ def pack_chunk_planes(packed, device):
     argument with one row, ("periodic", (plo, phi, wvec), L, R) for the
     fixed-length-read layout (2 bits a base on the wire, periodicity
     read off the record metadata) or ("planes", (plo, phi, pnn), L)
-    otherwise (3 bits a base)."""
+    otherwise (3 bits a base).  A chunk of the native reader brings its
+    planes (`planes`), which are uploaded as they are."""
     codes = packed.codes
+    pl = getattr(packed, "planes", None)
     per = detect_periodic_meta(packed)
     L = codes.shape[0]
     if per is not None:
         R, w = per
-        plo, phi = pack_planes2(codes)
+        plo, phi = pl[:2] if pl is not None else pack_planes2(codes)
         wvec = torch.tensor([w], dtype=torch.int32, device=device)
         return ("periodic", (u32_to_torch(plo, device),
                              u32_to_torch(phi, device), wvec), L, R)
     return ("planes", tuple(u32_to_torch(p, device)
-                            for p in pack_planes(codes)), L)
+                            for p in (pl or pack_planes(codes))), L)
 
 
 class PackedChunk:

@@ -2,10 +2,13 @@
 table (count.c:147-166), `recount` (count.c:168-193), and the Bloom
 two-pass `-b` protocol (main.c:53-60).
 
-Port of `yak_tpu/models/count.py` (without `-X`): the host packs
-fixed-shape flat code chunks (io/pack.py) and the table folds them on
-its device; CUDA queues device work asynchronously, so the host packs
-the next chunks while the device folds the previous group.
+Port of `yak_tpu/models/count.py`: the reader packs fixed-shape flat
+code chunks and their bit planes (io/chunks.py, the native reader's
+background thread where it builds) and the table folds them on its
+device; CUDA queues device work asynchronously, so the host reads the
+next chunks while the device folds the previous group.  `exact` (-X)
+takes the serial-exact Bloom gate, for the byte-exact dump of
+io/exactdump.py.
 """
 
 import os
@@ -28,15 +31,11 @@ class CountOpts:
     n_thread: int = 4          # accepted for CLI parity; unused
     chunk_size: int = 10_000_000
     cap_log2: int = 16         # initial table capacity (grows amortized)
-    exact: bool = False        # -X: the byte-exact dump (not yet ported)
+    # -X: the serial-exact Bloom gate (htab.c:57-70 bit for bit), so
+    # that the pass-1 key set is the reference's even when pass 2 reads
+    # another file, as the byte-exact dump's replay needs
+    exact: bool = False
     device: str = "cuda"
-
-
-def _check_supported(opt):
-    if opt.exact:
-        raise NotImplementedError(
-            "-X (the byte-exact khashl dump and its serial-exact Bloom "
-            "gate) is not yet ported: ROADMAP.md Queue 1, '-X'")
 
 
 def _device_chunk(opt):
@@ -52,12 +51,11 @@ def count_file(fn, opt, table=None):
     table=None -> create-new mode; otherwise increment-existing-only
     (the pass-2 / recount path, htab.c:71-75).
     """
-    _check_supported(opt)
     create_new = table is None
     if table is None:
         table = KmerTable(opt.k, opt.pre, cap_log2=opt.cap_log2,
                           device=opt.device, bf_shift=opt.bf_shift,
-                          bf_n_hash=opt.bf_n_hash)
+                          bf_n_hash=opt.bf_n_hash, bf_exact=opt.exact)
     elif table.k != opt.k or table.pre != opt.pre:
         raise ValueError("count_file: table k/pre differ from the options")
     chunk = _device_chunk(opt)
@@ -68,6 +66,7 @@ def count_file(fn, opt, table=None):
     for packed in src:
         per = detect_periodic_meta(packed)
         table.insert_codes(packed.codes, create_new=create_new,
+                           planes=getattr(packed, "planes", None),
                            periodic=per if per else False)
         # per-chunk line (count.c:140-141 shape); the distinct-k-mer
         # figure is the last SETTLED fold (syncing here would stall)
@@ -112,7 +111,6 @@ def count(files, opt):
     gate's false positives), so one ungated pass + shrink gives it.  The
     test is on paths, not content: two paths to the same data take the
     literal protocol, whose table is the same."""
-    _check_supported(opt)
     if opt.bf_shift <= 0:
         return count_file(files[0], opt)
     if not literal_two_pass(files, opt):
@@ -140,6 +138,7 @@ def recount(fn, table):
     for packed in ChunkSource(fn, chunk, table.k, with_meta="records"):
         per = detect_periodic_meta(packed)
         table.insert_codes(packed.codes, create_new=False,
+                           planes=getattr(packed, "planes", None),
                            periodic=per if per else False)
     table.flush()
     return table

@@ -1,7 +1,7 @@
 """Blocked Bloom prefilter of the `-b` count's first pass, in plain torch.
 
-Port of `yak_tpu/ops/bloom.py` without the serial-exact rank gate (that
-gate serves only `-X`, ROADMAP.md Queue 1, '-X').  Reference semantics
+Port of `yak_tpu/ops/bloom.py`, with its serial-exact rank gate (the
+gate of `-X`, see `bloom_insert`).  Reference semantics
 (bbf.c:25-42, one filter per `pre`-bit shard, htab.c:23-27): for the
 shard-stripped hash x = h >> pre,
 
@@ -29,6 +29,16 @@ words).  A batch of unique keys (the `active` lanes) is inserted as:
      bits.  The dense tail (at most 2^22 words) takes each word's sum as
      a prefix-sum difference and builds a new filter; the sparse tail
      writes the sums of the run-end lanes into the filter in place.
+
+The serial-exact gate (`rank` given): the reference inserts a shard
+buffer's keys one at a time (htab.c:57-70), so a key's gate also sees
+the bits of the keys before it in the same batch.  With each active
+key's serial first-occurrence rank, the probes are sorted by (bit
+position, rank, probe): the first lane of a position's run is its
+earliest setter, and a probe was not yet visible at its key's first
+occurrence exactly when it needed its bit (not set before the batch nor
+by an earlier probe of its key) and its key is that earliest setter.
+Only n_before changes; the filter update is the one above.
 
 The count's one-fold-late overflow replay must see the filter as it was
 before the fold, so every update returns an undo record: the pre-update
@@ -74,20 +84,66 @@ def probe_geom(h, *, pre, n_shift, n_hashes):
     return base, zs
 
 
-def probe_count(bf, base, zs, active):
-    """Per active key, how many of its probed bits are set in `bf` or by
-    an earlier probe of the same key (int32; 0 for inactive lanes).  One
-    64-byte block gather per key replaces n_hashes word gathers."""
+def exact_gate_fits(n_shift, n_hashes, rank_bound):
+    """Whether the serial-exact gate's packed (position, rank, probe) sort
+    key of a batch with ranks below rank_bound fits below 2^63."""
+    rank_bits = max(1, int(max(rank_bound - 1, 1)).bit_length())
+    return n_hashes <= 8 and n_shift + rank_bits + 3 < 64
+
+
+def probe_seen(bf, base, zs):
+    """Per probe, whether its bit is set in `bf` or by an earlier probe of
+    the same key (int64 0/1 [n] each).  One 64-byte block gather per key
+    replaces n_hashes word gathers."""
     blocks = bf.reshape(-1, BLK_WORDS)
     rows = blocks[(base >> YAK_BLK_SHIFT).clamp(0, blocks.shape[0] - 1)]
-    n_before = torch.zeros(base.shape, dtype=torch.int32, device=bf.device)
+    out = []
     for i, zi in enumerate(zs):
         word = rows.gather(1, (zi >> 5)[:, None])[:, 0].to(torch.int64)
         seen = (word >> (zi & 31)) & 1
         for zj in zs[:i]:
             seen = seen | (zj == zi).to(torch.int64)
+        out.append(seen)
+    return out
+
+
+def probe_count(bf, base, zs, active):
+    """Per active key, how many of its probed bits are set in `bf` or by
+    an earlier probe of the same key (int32; 0 for inactive lanes)."""
+    n_before = torch.zeros(base.shape, dtype=torch.int32, device=bf.device)
+    for seen in probe_seen(bf, base, zs):
         n_before += torch.where(active, seen, 0).to(torch.int32)
     return n_before
+
+
+def serial_count(bf, base, zs, active, rank, rank_bound):
+    """n_before under the reference's serial order (the rank branch of
+    yak_tpu's bloom_insert): `rank` int [n] is each active key's serial
+    first-occurrence position, distinct and below rank_bound.  The
+    inactive lanes sort last as INT64_MAX; the active packed keys are
+    below 2^63 (exact_gate_fits), so signed order is their order.  Each
+    run's head is found by `countstep.last_set_lane`, not a
+    torch.cummax, which scans in one block on the card."""
+    from yak_tpu_torch.ops.countstep import last_set_lane
+
+    nh, n = len(zs), base.shape[0]
+    rank_bits = max(1, int(max(rank_bound - 1, 1)).bit_length())
+    sh = rank_bits + 3
+    r = rank.to(torch.int64).clamp(0, rank_bound - 1) << 3
+    packed = torch.stack([torch.where(active, ((base + z) << sh) | r | i,
+                                      INT64_MAX)
+                          for i, z in enumerate(zs)]).reshape(-1)
+    need = torch.stack([active & (s == 0)
+                        for s in probe_seen(bf, base, zs)]).reshape(-1)
+    ps, perm = torch.sort(packed)
+    pos = ps >> sh
+    head = last_set_lane(pos != _shift_in(pos, -1)).to(torch.int64)
+    rk = (ps >> 3) & ((1 << rank_bits) - 1)
+    bad = (ps != INT64_MAX) & need[perm] & ~(rk > rk[head])
+    nbad = torch.zeros(nh * n, dtype=torch.int32, device=bf.device)
+    nbad.scatter_(0, perm, bad.to(torch.int32))
+    return torch.where(active, nh - nbad.reshape(nh, n).sum(0), 0) \
+        .to(torch.int32)
 
 
 def _shift_in(x, fill):
@@ -95,16 +151,26 @@ def _shift_in(x, fill):
     return torch.cat([x.new_full((1,), fill), x[:-1]])
 
 
-def bloom_insert(bf, h, active, *, pre, n_shift, n_hashes):
+def bloom_insert(bf, h, active, rank=None, *, pre, n_shift, n_hashes,
+                 rank_bound=0):
     """Query-and-set the active lanes of `h` (unique hashes).
 
     Returns (bf', n_before, undo): n_before[i] is the number of probed
     bits already set (yak_bf_insert's return; the key enters the table
     iff n_before == n_hashes).  Up to 2^22 words bf' is a new filter and
     undo is `bf`, untouched; above, bf is updated in place, bf' is bf,
-    and undo holds the touched words' old values (see `rollback`)."""
+    and undo holds the touched words' old values (see `rollback`).
+
+    rank (optional): each active key's serial first-occurrence position,
+    below rank_bound; when given and the packed key fits
+    (exact_gate_fits), n_before follows the reference's serial order
+    (`serial_count`), else every key sees the filter as it was before
+    the batch, as in yak_tpu."""
     base, zs = probe_geom(h, pre=pre, n_shift=n_shift, n_hashes=n_hashes)
-    n_before = probe_count(bf, base, zs, active)
+    if rank is not None and exact_gate_fits(n_shift, n_hashes, rank_bound):
+        n_before = serial_count(bf, base, zs, active, rank, rank_bound)
+    else:
+        n_before = probe_count(bf, base, zs, active)
     nwords = bf.shape[0]
     pos = torch.stack([base + z for z in zs]).reshape(-1)
     act = active.repeat(len(zs))

@@ -8,9 +8,10 @@ inspect, `KmerTable.lookup_hashes`).
 Port of the default count engine of `yak_tpu/ops/countstep.py`
 (`get_count_step_pmerge{,_planes}`, `get_count_wide_step{,_planes}`,
 `get_count_bloom_step{,_planes}`, `_pmerge_prep_core`,
-`finalize_pmerge`, `pmerge_overflow`) and of its Bloom gate posts
+`finalize_pmerge`, `pmerge_overflow`), of its Bloom gate posts
 (`get_bloom_gate_post`, `_gate_sent_a`, `_gate_sent_b`,
-`gate_sent_fits`, `run_bloom_gate_post`).  The batch sort is
+`gate_sent_fits`, `run_bloom_gate_post`) and of the serial-exact gate
+of -X (`_gate_batch(exact=True)`, `_serial_rank`).  The batch sort is
 `torch.sort`, as the JAX package's is `lax.sort` in XLA
 (countstep.py:215-239, 387-425); the merge is the hand-written kernel
 (`ops/merge.py`).  The batch travels as plain ascending int64 keys with
@@ -110,14 +111,18 @@ def extract(carg, k):
     return extract_from_planes(plo, phi, pnn, k, L)
 
 
-def sort_batch(h, valid, wide=False, psort=False):
+def sort_batch(h, valid, wide=False, psort=False, with_perm=False):
     """Flatten and sort a hash batch ascending; invalid lanes become
     INT64_MAX and sort to the tail.  wide: the hashes are raw k >= 32
     hashes, wide-encoded before the sort.  psort: through the sort
-    kernel, else torch.sort."""
+    kernel, else torch.sort.  with_perm (torch.sort only): a stable sort,
+    returned with its permutation (int64), whose value at a key run's
+    first lane is the run's first lane in the flat batch."""
     keys = torch.where(valid, encode_wide(h) if wide else h, INT64_MAX)
     if psort:
         return sort.sort(keys.reshape(-1))[0]
+    if with_perm:
+        return torch.sort(keys.reshape(-1), stable=True)
     return torch.sort(keys.reshape(-1)).values
 
 
@@ -126,10 +131,13 @@ def count_step(carg, k, tkeys, tcnt, size, create, gate=None, hook=None,
     """One fold: extract + sort [+ Bloom gate post] + merge-reduce +
     finalize.  k >= 32 folds wide-encoded keys.
 
-    gate: None, or (bf, pre, bf_shift, bf_n_hash) to run the gated create
-    pass (htab.c:61-70) against the filter bf.  psort: the psort engine's
-    fold, whose batch sort is the sort kernel and whose gated fold takes
-    the plain gate post (yak_tpu/table.py:414-420).
+    gate: None, or (bf, pre, bf_shift, bf_n_hash, exact) to run the gated
+    create pass (htab.c:61-70) against the filter bf; exact: through the
+    serial-exact gate post (`bloom_gate_exact_post`, -X), whose ranks
+    come from a stable torch.sort, whatever `psort` says (the table
+    refuses -X on the psort engine, as yak_tpu does).  psort: the psort
+    engine's fold, whose batch sort is the sort kernel and whose gated
+    fold takes the plain gate post (yak_tpu/table.py:414-420).
 
     Returns (keys, cnt, size, n_new, overflow, bf', undo): the new table
     truncated to cap, its live size min(new_size, cap), the created-key
@@ -139,14 +147,22 @@ def count_step(carg, k, tkeys, tcnt, size, create, gate=None, hook=None,
     called with each phase's name as the phase is queued."""
     mark = hook or (lambda _name: None)
     wide = k > 31
+    exact = gate is not None and gate[4]
     h, valid = extract(carg, k)
     mark("extract")
-    bkeys = sort_batch(h, valid, wide, psort)
+    if exact:
+        bkeys, perm = sort_batch(h, valid, wide, with_perm=True)
+    else:
+        bkeys = sort_batch(h, valid, wide, psort)
     mark("sort")
     weights = bf = undo = None
-    if gate is not None:
+    if exact:
+        weights, bf, undo = bloom_gate_exact_post(bkeys, perm, *gate[:4],
+                                                  wide=wide)
+        mark("gate")
+    elif gate is not None:
         post = bloom_gate_post if psort else run_bloom_gate_post
-        weights, bf, undo = post(bkeys, *gate, wide=wide)
+        weights, bf, undo = post(bkeys, *gate[:4], wide=wide)
         mark("gate")
     okeys, ocnt, new_size, n_new = merge.merge_reduce(
         tkeys, tcnt, size, bkeys, create, weights=weights, wide=wide)
@@ -194,6 +210,26 @@ def bloom_gate_post(bkeys, bf, pre, bf_shift, bf_n_hash, wide=False):
     h = decode_wide(bkeys) if wide else bkeys
     bf2, n_before, undo = bloom.bloom_insert(
         bf, h, ends, pre=pre, n_shift=bf_shift, n_hashes=bf_n_hash)
+    return _gate_weights(ends, mult, n_before, bf_n_hash), bf2, undo
+
+
+def bloom_gate_exact_post(bkeys, perm, bf, pre, bf_shift, bf_n_hash,
+                          wide=False):
+    """The serial-exact gate post (countstep._gate_batch(exact=True) with
+    _serial_rank) on a batch sorted stably with its permutation `perm`:
+    as bloom_gate_post, with each run's serial rank, the flat-batch lane
+    of its first occurrence, which is perm at the run's first lane.  The
+    flat batch is the fold's chunks in order, each chunk's windows in
+    base order (the all-N pad chunks invalid), so the lane is the serial
+    buffer position (htab.c:57-70).  Returns (weights, bf', undo)."""
+    ends, mult = _runs(bkeys)
+    lane = torch.arange(bkeys.numel(), dtype=torch.int64,
+                        device=bkeys.device)
+    rank = perm[lane - mult + 1]
+    h = decode_wide(bkeys) if wide else bkeys
+    bf2, n_before, undo = bloom.bloom_insert(
+        bf, h, ends, rank, pre=pre, n_shift=bf_shift, n_hashes=bf_n_hash,
+        rank_bound=bkeys.numel())
     return _gate_weights(ends, mult, n_before, bf_n_hash), bf2, undo
 
 

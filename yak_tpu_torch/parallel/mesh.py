@@ -55,8 +55,7 @@ from yak_tpu_torch import YAK_MAX_COUNT
 from yak_tpu_torch.io import yakfmt
 from yak_tpu_torch.io.chunks import ChunkSource
 from yak_tpu_torch.io.pack import pack_chunk_planes
-from yak_tpu_torch.models.count import (_check_supported, _device_chunk,
-                                        literal_two_pass)
+from yak_tpu_torch.models.count import _device_chunk, literal_two_pass
 from yak_tpu_torch.ops import countstep
 from yak_tpu_torch.table import KmerTable
 
@@ -244,7 +243,6 @@ def count_file_mesh(fn, opt, mesh, cap_log2=None, table=None, hook=None):
     table's existing keys only (recount, htab.c:71-75).  `hook`, when
     given, is called with "start", "h2d", "extract", "route" and "fold"
     as each group's phases are queued."""
-    _check_supported(opt)
     create = table is None
     if create:
         if opt.bf_shift > opt.pre and 9 <= opt.bf_shift - opt.pre <= 64 - 9:

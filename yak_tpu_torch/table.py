@@ -41,12 +41,16 @@ presence vote, folds `other`'s selected keys into the table by the
 merge-reduce in count mode; `subtract` and `isec` JOIN the table's own
 keys, already ascending, against `other` and compact the survivors.
 
-Not ported here: the serial-exact Bloom gate of `-X` (ROADMAP.md
-Queue 1).
+With `bf_exact` (-X), the gated folds and raw hash batches take the
+serial-exact gate (`countstep.bloom_gate_exact_post`), whose pass-1 key
+set is the reference's bit for bit even when pass 2 reads another file;
+a fold whose packed rank key would not fit refuses before it runs
+(`_warn_exact_gate`), as does the psort engine, which has no such gate.
 The TPU package's transient-fault retry (`yak_tpu/table.py:493-502`) is
 deliberately absent: on the card it would hide a fault.
 """
 
+import os
 import sys
 
 import numpy as np
@@ -79,10 +83,11 @@ class KmerTable:
     versions.  `phase_hook`, when set, is called with the name of each
     fold phase as it is queued ("start", "h2d", "extract", "sort",
     "gate" on a gated fold, "merge", "finalize"), for per-phase
-    timing."""
+    timing.  `bf_exact`: gate through the serial-exact gate (-X)."""
 
     def __init__(self, k, pre=10, cap_log2=16, flush_lanes=None,
-                 cap_hinted=None, *, device, bf_shift=0, bf_n_hash=4):
+                 cap_hinted=None, *, device, bf_shift=0, bf_n_hash=4,
+                 bf_exact=False):
         if pre < 10:
             raise ValueError("pre must be at least YAK_COUNTER_BITS (10)")
         if not 1 <= k <= MAX_K:
@@ -98,7 +103,7 @@ class KmerTable:
         self.keys, self.cnt, self.size = st.make_table(1 << cap_log2,
                                                        self.device)
         self._tot = 0          # host mirror of size (settled folds)
-        self._pend = []        # deferred (h, valid) hash batches
+        self._pend = []        # deferred (h, add, valid) hash batches
         self._pend_lanes = 0
         self._pend_codes = []  # deferred host code chunks (count path)
         self._pend_create = True
@@ -111,6 +116,7 @@ class KmerTable:
         self.bf = None
         self.bf_shift = bf_shift
         self.bf_n_hash = bf_n_hash
+        self.bf_exact = bf_exact
         # a per-shard filter of at least one 512-bit block and at most
         # 2^64 bits, else yak_bf_init returns NULL and counting runs
         # ungated (bbf.c:9, htab.c:23-27)
@@ -142,14 +148,16 @@ class KmerTable:
 
     # -- hot path -------------------------------------------------------
 
-    def insert_codes(self, codes, create_new=True, periodic=None):
+    def insert_codes(self, codes, create_new=True, planes=None,
+                     periodic=None):
         """Queue one fixed-size flat base-code chunk (uint8, 4 = N/pad).
 
         Chunks accumulate on the host, bit-plane packed here (2 bits a
         base for the periodic fixed-length-read layout, 3 otherwise),
         and fold into the table in groups.  All chunks of a table share
-        a length.  `periodic` skips the layout scan: a (R, w) tuple, or
-        False for known-general.
+        a length.  `planes` (the native reader's pre-packed (plo, phi,
+        pnn)) skips the packing; `periodic` skips the layout scan: a
+        (R, w) tuple, or False for known-general.
         """
         if self._pend_create != create_new:
             self.flush()
@@ -157,10 +165,12 @@ class KmerTable:
         per = detect_periodic(codes) if periodic is None \
             else (periodic or None)
         if per is not None:
-            plo, phi = pack_planes2(codes)
+            plo, phi = planes[:2] if planes is not None \
+                else pack_planes2(codes)
             self._pend_codes.append((codes, plo, phi, None, per))
         else:
-            plo, phi, pnn = pack_planes(codes)
+            plo, phi, pnn = planes if planes is not None \
+                else pack_planes(codes)
             self._pend_codes.append((codes, plo, phi, pnn, None))
         if self._group_g is None:
             lanes = max(codes.shape[0] - self.k + 1, 1)
@@ -237,6 +247,15 @@ class KmerTable:
         `lanes` lanes after settling the previous one, and keep what an
         overflow replay needs."""
         self._check_last_step()  # one step late: previous fold settled
+        if gated and self.bf_exact:
+            self._warn_exact_gate(lanes)
+            env = os.environ
+            if (env.get("YAK_TPU_PSORT") == "1"
+                    or env.get("YAK_TPU_ENGINE") == "psort"):
+                raise RuntimeError(
+                    "-X (byte-exact dump) requires the default engine's "
+                    "serial-exact Bloom gate; unset YAK_TPU_PSORT/"
+                    "YAK_TPU_ENGINE=psort or drop -X")
         # capacity prior (only without an explicit cap hint): a fold of
         # L lanes creates at most L keys and typically ~L/2 distinct
         if not self._cap_hinted and self.cap * 2 < lanes:
@@ -257,8 +276,8 @@ class KmerTable:
         device overflow flag and the filter's undo record (None when
         ungated)."""
         keys, cnt, size = state
-        gate = ((self.bf, self.pre, self.bf_shift, self.bf_n_hash)
-                if gated else None)
+        gate = ((self.bf, self.pre, self.bf_shift, self.bf_n_hash,
+                 self.bf_exact) if gated else None)
         (self.keys, self.cnt, self.size, _n_new, ovf, bf,
          undo) = countstep.count_step(carg, self.k, keys, cnt, size,
                                       self._pend_create, gate=gate,
@@ -266,6 +285,21 @@ class KmerTable:
         if gated:
             self.bf = bf
         return ovf, undo
+
+    def _warn_exact_gate(self, lanes):
+        """Refuse a gated fold of `lanes` lanes that the serial-exact gate
+        (-X) could not serve (its packed sort key would not fit 64 bits),
+        before it runs, as yak_tpu/table.py:269-285 does: the exact-dump
+        cross-check would only find it after a full count.  The bound,
+        2 * lanes + 4096, is yak_tpu's, so the same -b/-H/-K refuse."""
+        if not bloom.exact_gate_fits(self.bf_shift, self.bf_n_hash,
+                                     2 * lanes + 4096):
+            raise ValueError(
+                f"-X (byte-exact dump) cannot engage the serial-exact "
+                f"Bloom gate for -b{self.bf_shift} -H{self.bf_n_hash} "
+                f"with {lanes} lanes/fold: the packed (position, rank) "
+                f"sort key exceeds 64 bits.  Use a smaller -b/-K or "
+                f"drop -X (the default dump has identical content).")
 
     def _check_last_step(self):
         """Settle the previous fold: on overflow, double the preserved
@@ -291,18 +325,34 @@ class KmerTable:
         (deferred; folded in at the next flush by the plain sort-merge,
         as the JAX package folds it by its XLA merge_batch).  k >= 32
         hashes are the raw u64 bit patterns.  create_new=False
-        increments existing keys only (htab.c:71-75)."""
+        increments existing keys only (htab.c:71-75).
+
+        Through a live filter, a creating batch is gated at once, as
+        yak_ch_insert_list gates it (htab.c:51-78; yak_tpu/table.py:
+        545-581): sorted stably, each key run's weight is its length,
+        less one where its probed bits were not all set, by the plain
+        gate post or, with bf_exact, the serial-exact one, whose rank is
+        the batch lane of the key's first occurrence (the caller's order
+        is the serial order)."""
+        h, valid = h.to(self.device), valid.to(self.device)
         if self.bf is not None and create_new:
-            raise NotImplementedError(
-                "insert_hashes through the Bloom gate is not yet ported: "
-                "ROADMAP.md Queue 1, 'Bloom-gated raw hash batches'")
+            h, perm = countstep.sort_batch(h, valid, self.wide,
+                                           with_perm=True)
+            gate = (self.bf, self.pre, self.bf_shift, self.bf_n_hash)
+            if self.bf_exact:
+                add, self.bf, _undo = countstep.bloom_gate_exact_post(
+                    h, perm, *gate, wide=self.wide)
+            else:
+                add, self.bf, _undo = countstep.bloom_gate_post(
+                    h, *gate, wide=self.wide)
+            valid = add > 0
+        else:
+            h = encode_wide(h) if self.wide else h
+            add = torch.ones(h.shape, dtype=torch.int32, device=self.device)
         if create_new != self._pend_create:
             self.flush()
             self._pend_create = create_new
-        h = h.to(self.device)
-        if self.wide:
-            h = encode_wide(h)
-        self._pend.append((h, valid.to(self.device)))
+        self._pend.append((h, add, valid))
         self._pend_lanes += h.shape[0]
         if self._pend_lanes >= (self.flush_lanes or max(1 << 23, self.cap)):
             self.flush()
@@ -313,14 +363,13 @@ class KmerTable:
         self._check_last_step()
         if not self._pend:
             return
-        h = torch.cat([p[0] for p in self._pend])
-        valid = torch.cat([p[1] for p in self._pend])
+        h, add, valid = (torch.cat([p[j] for p in self._pend])
+                         for j in range(3))
         self._pend, self._pend_lanes = [], 0
         if self._pend_create:
             # the live size, not the host mirror: code folds since the
             # last read leave _tot stale, and a short table would truncate
             self._ensure_capacity(int(self.size) + h.shape[0])
-        add = torch.ones(h.shape, dtype=torch.int32, device=self.device)
         self.keys, self.cnt, self.size, _, _ = st.merge_batch(
             self.keys, self.cnt, self.size, h, add, valid,
             create=self._pend_create)
