@@ -211,7 +211,26 @@ Phases, in order; any failure exits non-zero:
      every captured count, weighted and wide merge call is held against
      its plain version; `count -X -b37` must exit 1 (the packed rank key
      would not fit, as yak_tpu refuses it) and `-X -b24` under
-     YAK_TPU_PSORT=1 must raise.
+     YAK_TPU_PSORT=1 must raise;
+ 33. -b on a mesh of four shards of the card: phase 10's -b24 literal
+     two-pass over the hard link through parallel.mesh.count_mesh (chunk
+     2^23, 2^21 lanes a shard; each shard gates a group's routed batch
+     by its 2^22-bit slice of the filter through the sentinel post and
+     folds it by the weighted merge, pass 2 in count mode), with
+     bench.py's bloom gates and its dump md5-equal to the one-device
+     dump; then `count -X -k31 -b24` of the reads and the seed-101 reads
+     through the CLI under YAK_TPU_MESH=1 (both passes on the mesh, the
+     serial ranks routed with the hashes), md5-gated by
+     EXACT_DIGEST["b24"]; every captured weighted and count-mode merge
+     and compaction call held against its plain version, the per-group
+     device and host spans printed;
+ 34. chkerr, triobin, trioeval and sexchr on the same mesh, their tables
+     dealt onto it: chkerr of phase 8's contigs and reads (phase 8's
+     output, and the contigs again at a marker budget of 64), triobin of
+     seeds 7 and 8 (TB_DIGEST), trioeval of seeds 17 and 18 (TE_DIGEST)
+     and sexchr of phase 26's inputs (ALGEBRA_DIGEST), each chunk's post
+     on its shard's device; every captured JOIN and compaction call held
+     against its plain version.
 
 Every path that reads a sequence file takes the native reader, as
 `yak_tpu` does; phases 3, 4 and 11 fold chunks packed by this script.
@@ -241,7 +260,10 @@ cntasm presence vote; the `*_mesh` entries are the per-shard launches
 of phases 29-30, which replace yak_tpu's shard_mapped wrappers
 (`merge_reduce_presorted_mesh`, `sort_planes_mesh` with its pass chain,
 and `sort_planes32_mesh`, whose order restores are the JOIN's stores and
-the scatter by slot), timed at a shard's call) and the
+the scatter by slot), timed at a shard's call, and of phases 33-34,
+whose weighted merges and compactions have their own entries
+(`merge_reduce_weighted_mesh`, `compact_mesh`), in place of yak_tpu's
+shard_mapped count step with its bloom_cfg and lookup steps) and the
 contract line
 {"ok": true, "device": {...}}.  Imports no JAX.
 """
@@ -2140,6 +2162,15 @@ def algebra_files(d, genome, reads):
         paths[f"asm{i}"] = os.path.join(d, f"asm{i}.fa")
         write_fasta(paths[f"asm{i}"], np.split(g, N_CONTIGS),
                     [b"asm%d_%d" % (i, j) for j in range(N_CONTIGS)])
+    paths.update(sexchr_files(d, genome))
+    return paths
+
+
+def sexchr_files(d, genome):
+    """sexchr's inputs (phases 26 and 34): the chrY, chrX and PAR
+    stretches of the genome (SEXCHR_REGIONS), and hap1 and hap2, the
+    rotation sets of trio seeds 7 and 8 cut into contigs of 100 kbp."""
+    paths = {}
     for name, (a, b) in SEXCHR_REGIONS.items():
         paths[name] = os.path.join(d, f"{name}.fa")
         write_fasta(paths[name], [genome[a:b]], [name.encode()])
@@ -2161,7 +2192,6 @@ def algebra_tables(dev, d, count_items, paths):
     4's table shrunk to counts in [2, 1023], under bench.py's bloom
     gates; and the chrY, chrX and PAR tables counted at k=31."""
     from yak_tpu_torch.io.yakfmt import dump_yak
-    from yak_tpu_torch.models.count import CountOpts, count_file
     from yak_tpu_torch.table import KmerTable
 
     paths["a"], paths["b24"] = (os.path.join(d, "a.yak"),
@@ -2174,6 +2204,15 @@ def algebra_tables(dev, d, count_items, paths):
                 BLOOM_DISTINCT, BLOOM_HIST)
     with contextlib.redirect_stderr(io.StringIO()):
         b24.dump(paths["b24"])
+    sexchr_tables(dev, d, paths)
+
+
+def sexchr_tables(dev, d, paths):
+    """The chrY, chrX and PAR tables counted at k=31 on the card, as
+    `.yak` files beside their FASTAs (paths[name + ".yak"])."""
+    from yak_tpu_torch.models.count import CountOpts, count_file
+
+    with contextlib.redirect_stderr(io.StringIO()):
         for name in SEXCHR_REGIONS:
             paths[f"{name}.yak"] = os.path.join(d, f"{name}.yak")
             count_file(paths[name], CountOpts(k=K, chunk_size=1 << 23,
@@ -2206,14 +2245,15 @@ def check_joins(calls, label):
 
 
 def time_merge_call(call, label, card):
-    """A kernels-line entry (time_merge) for one captured count-mode
-    merge-reduce call, positional or keyword create."""
+    """A kernels-line entry (time_merge) for one captured merge-reduce
+    call, positional or keyword create, in its mode."""
     from yak_tpu_torch.ops import merge
 
     args, kw = call
     create = kw.get("create", args[4] if len(args) > 4 else True)
     ms, device_ms, plain_ms, plain_device_ms, bound = time_merge(
-        merge, tuple(args[:4]) + (create,), {"wide": kw.get("wide", False)},
+        merge, tuple(args[:4]) + (create,),
+        {"wide": kw.get("wide", False), "weights": kw.get("weights")},
         f"{label} [{card}]")
     return {"max_abs_err": 0, "ms": ms, "plain_ms": plain_ms,
             "device_ms": device_ms, "plain_device_ms": plain_device_ms,
@@ -2577,8 +2617,10 @@ def algebra_phases(dev, card, count_items, reads, chunks, results, by_path):
 # the port's mesh launches by kernels-line entry: a per-shard launch of a
 # kernel that yak_tpu launches through a shard_map wrapper
 MESH_ENTRIES = {"merge_reduce": "merge_reduce_mesh",
+                "merge_reduce_weighted": "merge_reduce_weighted_mesh",
                 "merge_reduce_wide": "merge_reduce_wide_mesh",
                 "merge_join": "merge_join_mesh",
+                "compact": "compact_mesh",
                 "sort_i64": "sort_i64_mesh",
                 "sort_i64_i32": "sort_i64_i32_mesh"}
 _MESH_SORT = {"replaces": "yak_tpu/ops/pallas_sort.py:691",
@@ -2591,6 +2633,19 @@ KERNELS.update({
     "merge_reduce_wide_mesh": dict(KERNELS["merge_reduce_wide"],
                                    name="merge_reduce_wide_mesh",
                                    replaces="yak_tpu/ops/pallas_merge.py:605"),
+    # the gated pass-1 fold of a shard (phase 33): the weighted mode in
+    # place of yak_tpu's shard_mapped count step with its bloom_cfg
+    "merge_reduce_weighted_mesh": dict(
+        KERNELS["merge_reduce_weighted"], name="merge_reduce_weighted_mesh",
+        replaces="yak_tpu/ops/pallas_merge.py:336",
+        replaces_also=["yak_tpu/parallel/mesh.py:338"]),
+    # a shard's sentinel gate post (phase 33) and the chunk posts' markers
+    # on the mesh (phase 34), in place of build_count_step / the lookup
+    # steps' shard_mapped reductions
+    "compact_mesh": dict(KERNELS["compact"], name="compact_mesh",
+                         replaces_also=["yak_tpu/parallel/mesh.py:338",
+                                        "yak_tpu/parallel/mesh.py:429",
+                                        "yak_tpu/parallel/mesh.py:653"]),
     # sort_planes32_mesh's two order restores are the JOIN's stores at the
     # lane and the scatter by slot (parallel/mesh._route_back)
     "merge_join_mesh": dict(KERNELS["merge_join"], name="merge_join_mesh",
@@ -3115,6 +3170,242 @@ def native_phases(dev, card, reads, results, by_path):
         os.rmdir(d)
 
 
+# -- phases 33-34: -b, chkerr, triobin, trioeval and sexchr on the mesh ----
+
+def mesh_kernel_checks(ms, cs, label, results):
+    """Every captured merge-reduce call (in its mode) and compaction call
+    of a mesh path held against its plain version, into the mesh
+    entries' errors."""
+    from yak_tpu_torch.ops import merge
+
+    for i, (args, kw) in enumerate(ms):
+        create = kw.get("create", args[4] if len(args) > 4 else True)
+        r = results[MESH_ENTRIES[merge_mode(kw)]]
+        r["max_abs_err"] = max(r["max_abs_err"], compare(
+            merge, args[:4], create, f"{label} merge {i}",
+            weights=kw.get("weights"), wide=kw.get("wide", False)))
+    for i, (args, _kw) in enumerate(cs):
+        r = results["compact_mesh"]
+        r["max_abs_err"] = max(r["max_abs_err"], check_compact(
+            args, f"{label} compaction {i}"))
+    log(f"  {label}: kernel == plain on {len(ms)} captured per-shard merge "
+        f"calls and {len(cs)} compaction calls")
+
+
+def mesh_bloom_paths(dev, card, d, paths, results, by_path):
+    """Phase 33: phase 10's -b24 literal two-pass over a hard link on the
+    mesh (count_mesh: each shard's slice of 2^22 bits gates its routed
+    batch through the sentinel post, the weighted merge folds it; pass 2
+    in count mode) with bench.py's bloom gates, its dump md5-equal to the
+    one-device dump; then `count -X -k31 -b24` of the reads and the
+    seed-101 reads through the CLI under YAK_TPU_MESH=1 (the serial
+    ranks routed with the hashes), md5-gated by EXACT_DIGEST["b24"];
+    every captured merge and compaction call held against its plain
+    version."""
+    from yak_tpu_torch import cli
+    from yak_tpu_torch.models.count import CountOpts
+    from yak_tpu_torch.parallel import mesh as pmesh
+
+    mesh = pmesh.make_mesh(devices=[dev] * MESH_SHARDS)
+    files = [paths["reads"], os.path.join(d, "reads_link.fa")]
+    os.link(*files)
+    one_path, mesh_path = (os.path.join(d, f"{n}_b24.yak")
+                           for n in ("one", "mesh"))
+    with contextlib.redirect_stderr(io.StringIO()):
+        run_bloom(files, 24, dev).dump(one_path)
+    name = "mesh b24 literal"
+    opt = CountOpts(k=K, bf_shift=24, chunk_size=MESH_CHUNK, device=str(dev))
+    marks = _GroupMarks()
+    reset_counts()
+    with captured("merge", "merge_reduce") as ms, \
+            captured("compact", "compact") as cs, \
+            contextlib.redirect_stderr(io.StringIO()):
+        t0 = time.perf_counter()
+        mt = pmesh.count_mesh(files, opt, mesh, cap_log2=MESH_CAP_LOG2,
+                              hook=marks)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = read_counts()
+    by_path[name] = mesh_counts(counts)
+    check_gates(mt, f"{name}: wall {wall:.4f} s [{card}]", BLOOM_DISTINCT,
+                BLOOM_HIST)
+    check_launched(counts, ("merge_reduce_weighted", "merge_reduce",
+                            "compact"), name)
+    with contextlib.redirect_stderr(io.StringIO()):
+        mt.dump(mesh_path)
+    if file_md5(mesh_path) != file_md5(one_path):
+        raise AssertionError(f"{name}: the dump differs from the one-device "
+                             f"dump")
+    log(f"  {name}: dump md5 {file_md5(mesh_path)} = the one-device dump's; "
+        f"shard sizes {[s.tot for s in mt.shards]}")
+    del mt
+    split_groups(marks.marks, wall, card, name)
+    mesh_kernel_checks(ms, cs, name, results)
+    results["merge_reduce_weighted_mesh"] = dict(time_merge_call(
+        next(c for c in ms if c[1].get("weights") is not None),
+        f"{name}: shard 0's gated fold of group 0", card),
+        max_abs_err=results["merge_reduce_weighted_mesh"]["max_abs_err"])
+    sentinel = max((a for a, _kw in cs), key=lambda a: a[0].numel())
+    results["compact_mesh"].update(time_compact(
+        sentinel, f"compaction at a shard's -b24 sentinel post", card),
+        max_abs_err=results["compact_mesh"]["max_abs_err"])
+    del ms, cs
+
+    name, out = "mesh -X b24", os.path.join(d, "mesh_x_b24.yak")
+    used = []
+    real = pmesh.count_file_mesh
+    pmesh.count_file_mesh = (lambda fn, o, m, **kw: used.append(len(m))
+                             or real(fn, o, m, **kw))
+    os.environ["YAK_TPU_MESH"] = "1"
+    reset_counts()
+    try:
+        with captured("merge", "merge_reduce") as ms, \
+                contextlib.redirect_stderr(io.StringIO()) as err:
+            t0 = time.perf_counter()
+            rc = cli.main(["count", "-X", "-k31", "-b24", "--device", "cuda",
+                           "-o", out, paths["reads"], paths["qv101"]])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        del os.environ["YAK_TPU_MESH"]
+        pmesh.count_file_mesh = real
+    if rc != 0:
+        raise AssertionError(f"{name}: exit {rc}: {err.getvalue()[-2000:]}")
+    counts = read_counts()
+    by_path[name] = mesh_counts(counts)
+    md5 = file_md5(out)
+    log(f"  {name} (-k31 -b24 of reads, qv101 through the CLI on "
+        f"{used} shards): dump md5 {md5} (want {EXACT_DIGEST['b24']}), "
+        f"cross-check passed; wall {wall:.4f} s [{card}]")
+    if used != [MESH_SHARDS] * 2 or md5 != EXACT_DIGEST["b24"]:
+        raise AssertionError(f"{name}: passes on {used} shards, md5 {md5}")
+    check_launched(counts, ("merge_reduce_weighted", "merge_reduce"), name)
+    mesh_kernel_checks(ms, [], name, results)
+
+
+def mesh_lookup_run(label, run, results, by_path, needed):
+    """One lookup command on the mesh: launches counted from 0, every
+    JOIN and compaction call checked; returns (run's result, wall s,
+    the captured compaction calls)."""
+    reset_counts()
+    with captured("merge", "merge_join") as js, \
+            captured("compact", "compact") as cs:
+        t0 = time.perf_counter()
+        text = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = read_counts()
+    by_path[label] = mesh_counts(counts)
+    check_launched(counts, needed, label)
+    r = results["merge_join_mesh"]
+    r["max_abs_err"] = max(r["max_abs_err"], check_joins(js, label))
+    mesh_kernel_checks([], cs, label, results)
+    return text, wall, cs
+
+
+def mesh_lookup_paths(dev, card, paths, count_items, ch_texts, results,
+                      by_path):
+    """Phase 34: chkerr of phase 8's contigs and reads (its one-device
+    output, and the contigs again at a marker budget of 64), triobin of
+    seeds 7 and 8 (TB_DIGEST), trioeval of seeds 17 and 18 (TE_DIGEST)
+    and sexchr (ALGEBRA_DIGEST) against tables dealt onto the mesh; every
+    JOIN and compaction call held against its plain version."""
+    from yak_tpu_torch.models import sexchr, trio
+    from yak_tpu_torch.ops import countstep
+    from yak_tpu_torch.parallel.mesh import MeshTable, make_mesh
+
+    mesh = make_mesh(devices=[dev] * MESH_SHARDS)
+
+    def on_mesh(table):
+        return MeshTable.from_items(mesh, table.k, table.pre, *table.items())
+
+    table = MeshTable.from_items(mesh, K, 10, *count_items)
+    for kind, chunk in CHKERR_CHUNKS.items():
+        label = f"mesh chkerr {kind}"
+        text, wall, cs = mesh_lookup_run(
+            label, lambda: run_chkerr(table, paths[kind], chunk), results,
+            by_path, ("merge_join", "compact"))
+        log(f"  {label} (chunk {chunk}): {text.count(chr(10))} rows, wall "
+            f"{wall:.4f} s [{card}]")
+        if text != ch_texts[kind]:
+            raise AssertionError(f"{label}: output differs from phase 8's")
+        if kind == "contigs":
+            results["compact_mesh"].setdefault("shapes", {})["chkerr"] = \
+                time_compact(cs[0][0], f"compaction at {label}'s markers",
+                             card)
+    saved = countstep.CHKERR_MAX_RUNS
+    countstep.CHKERR_MAX_RUNS = 64
+    try:
+        text = run_chkerr(table, paths["contigs"], CHKERR_CHUNKS["contigs"])
+    finally:
+        countstep.CHKERR_MAX_RUNS = saved
+    if text != ch_texts["contigs"]:
+        raise AssertionError("mesh chkerr contigs: the output past a marker "
+                             "budget of 64 differs")
+    log("  mesh chkerr: outputs equal to phase 8's, also at a marker budget "
+        "of 64")
+    del table
+    genome = np.random.default_rng(42).integers(0, 4, GENOME_LEN,
+                                                dtype=np.uint8)
+    tb, te = (on_mesh(t) for t in trio_tables(dev, count_items, genome))
+    npos = TRIO_CONTIGS * (GENOME_LEN - K + 1)
+    for cmd, table, digests, needed in (
+            ("triobin", tb, TB_DIGEST, ("merge_join",)),
+            ("trioeval", te, TE_DIGEST, ("merge_join", "compact"))):
+        for seed, want in digests.items():
+            label = f"mesh {cmd} {seed}"
+            (sink, _w, _m), wall, _cs = mesh_lookup_run(
+                label, lambda: trio_run(cmd, table, paths[seed],
+                                        trio_opts()), results, by_path,
+                needed)
+            log(f"  {label}: md5 {sink.digest()} (gate {want}); wall "
+                f"{wall:.4f} s, {npos / wall:.1f} positions/s [{card}]")
+            if sink.digest() != want:
+                raise AssertionError(f"{label}: digest {sink.digest()}")
+    del tb, te
+    ch = on_mesh(sexchr.load_sexchr_tables(
+        *(paths[f"{n}.yak"] for n in SEXCHR_REGIONS), dev))
+    buf = io.StringIO()
+    _, wall, _cs = mesh_lookup_run(
+        "mesh sexchr", lambda: sexchr.main_sexchr(
+            sexchr.SexchrOpts(), ch, [paths["hap1"], paths["hap2"]],
+            out=buf), results, by_path, ("merge_join",))
+    md5 = hashlib.md5(buf.getvalue().encode()).hexdigest()[:12]
+    npos = 2 * TRIO_CONTIGS * (GENOME_LEN - N_CONTIGS * (K - 1))
+    log(f"  mesh sexchr: md5 {md5}; wall {wall:.4f} s, {npos / wall:.1f} "
+        f"positions/s [{card}]")
+    check_digest("sexchr", md5)
+
+
+def mesh_slice_phases(dev, card, count_items, reads, ch_texts, results,
+                      by_path):
+    """Phases 33-34."""
+    genome = np.random.default_rng(42).integers(0, 4, GENOME_LEN,
+                                                dtype=np.uint8)
+    d = tempfile.mkdtemp(prefix="yak_tpu_torch_mesh2_")
+    try:
+        t0 = time.perf_counter()
+        paths = exact_files(d, reads)
+        phase(f"33. -b on a mesh of {MESH_SHARDS} shards of the card")
+        mesh_bloom_paths(dev, card, d, paths, results, by_path)
+        paths["contigs"] = os.path.join(d, "contigs.fa")
+        write_fasta(paths["contigs"], make_contigs(genome),
+                    [b"ctg%d" % i for i in range(N_CONTIGS)])
+        paths["reads"] = os.path.join(d, "reads.fq")
+        write_fastq(paths["reads"], reads)
+        paths.update(trio_sets(d, genome, (*TB_DIGEST, *TE_DIGEST)))
+        paths.update(sexchr_files(d, genome))
+        sexchr_tables(dev, d, paths)
+        log(f"  inputs written in {time.perf_counter() - t0:.3f} s")
+        phase(f"34. chkerr, triobin, trioeval and sexchr on a mesh of "
+              f"{MESH_SHARDS} shards of the card")
+        mesh_lookup_paths(dev, card, paths, count_items, ch_texts, results,
+                          by_path)
+    finally:
+        for name in os.listdir(d):
+            os.unlink(os.path.join(d, name))
+        os.rmdir(d)
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on the card",
@@ -3252,6 +3543,10 @@ def main():
     algebra_phases(dev, card, count_items, reads, chunks, results, by_path)
     mesh_phases(dev, card, count_items, reads, chunks, results, by_path)
     native_phases(dev, card, reads, results, by_path)
+    results["merge_reduce_weighted_mesh"] = {"max_abs_err": 0}
+    results["compact_mesh"] = {"max_abs_err": 0}
+    mesh_slice_phases(dev, card, count_items, reads, ch_texts, results,
+                      by_path)
     torch.cuda.synchronize()
 
     print(json.dumps({"kernels": [

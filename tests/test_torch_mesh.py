@@ -244,8 +244,8 @@ def test_mesh_skewed_batch():
 def test_fold_hashes_matches_insert_hashes():
     """fold_hashes (the kernel engine, one fold late) and insert_hashes
     (the plain sort-merge) give the same table, creating and then
-    increment-only; a table with a Bloom filter refuses a creating
-    fold."""
+    increment-only; through a live filter both gate a creating batch as
+    one gating batch, to the same table and filter."""
     rng = np.random.default_rng(5)
     a = KmerTable(33, cap_log2=10, device="cpu")
     b = KmerTable(33, cap_log2=10, device="cpu")
@@ -258,9 +258,12 @@ def test_fold_hashes_matches_insert_hashes():
     assert a.cap > 1 << 10
     for got, want in zip(a.items(), b.items()):
         np.testing.assert_array_equal(got, want)
-    gated = KmerTable(21, device="cpu", bf_shift=20)
-    with pytest.raises(NotImplementedError, match="Queue 1 step 6"):
-        gated.fold_hashes(h, valid)
+    gated = [KmerTable(21, device="cpu", bf_shift=20) for _ in range(2)]
+    gated[0].fold_hashes(h, valid)
+    gated[1].insert_hashes(h, valid)
+    for got, want in zip(*(t.items() for t in gated)):
+        np.testing.assert_array_equal(got, want)
+    assert torch.equal(gated[0].bf, gated[1].bf) and gated[0].bf.any()
 
 
 def _lookup_cases(data, k):
@@ -366,8 +369,10 @@ def test_cli_auto_mesh(data, monkeypatch, tmp_path, cmd):
 def test_count_mesh_bloom(data, tmp_path, monkeypatch):
     """count_mesh with -b over one file takes the same-file shortcut (the
     table of counts >= 2, the bytes of `yak_tpu`'s -b count); the literal
-    two-pass raises NotImplementedError naming its ROADMAP step, and the
-    CLI runs it on one device."""
+    two-pass over a hard link, or forced by YAK_TPU_BLOOM_TWO_PASS, gives
+    the same bytes through the shards' filter slices, as does the CLI,
+    which runs it on the mesh; a gated pass 1 alone equals a one-device
+    table's folding the same two chunks a fold."""
     monkeypatch.delenv("YAK_TPU_BLOOM_TWO_PASS", raising=False)
     o = opts(bf_shift=20)
     files = [data["reads"], data["reads"]]
@@ -376,8 +381,8 @@ def test_count_mesh_bloom(data, tmp_path, monkeypatch):
         jt = jcount.count(files, jcount.CountOpts(k=17, chunk_size=CHUNK,
                                                   bf_shift=20))
     jt.dump(str(tmp_path / "jax.yak"))
-    assert dump_bytes(mt, tmp_path / "mesh.yak") == \
-        (tmp_path / "jax.yak").read_bytes()
+    want = (tmp_path / "jax.yak").read_bytes()
+    assert dump_bytes(mt, tmp_path / "mesh.yak") == want
     assert mt.hist()[1] == 0 and mt.tot < data["jax17"].tot
     link = str(tmp_path / "reads2.fa")
     os.link(data["reads"], link)
@@ -385,16 +390,31 @@ def test_count_mesh_bloom(data, tmp_path, monkeypatch):
                       ((data["reads"],), "1")):
         if env:
             monkeypatch.setenv("YAK_TPU_BLOOM_TWO_PASS", env)
-        with pytest.raises(NotImplementedError, match="Queue 1 step 6"):
-            pmesh.count_mesh(list(args), o, cpu_mesh(4))
-    with pytest.raises(NotImplementedError, match="Queue 1 step 6"):
-        pmesh.count_file_mesh(data["reads"], o, cpu_mesh(2))
+        with contextlib.redirect_stderr(io.StringIO()):
+            lit = pmesh.count_mesh(list(args), o, cpu_mesh(4))
+        assert all(s.bf is None for s in lit.shards)
+        assert dump_bytes(lit, tmp_path / "lit.yak") == want
+    pass1 = pmesh.count_file_mesh(data["reads"], o, cpu_mesh(2))
+    one = KmerTable(17, cap_log2=12, device="cpu", bf_shift=20,
+                    flush_lanes=2 * (CHUNK - 17 + 1))
+    for packed in ChunkSource(data["reads"], CHUNK, 17, min_len=17):
+        one.insert_codes(packed.codes)
+    (h, c), (oh, oc) = pass1.items(), one.items()
+    np.testing.assert_array_equal(h[np.argsort(h)], oh)
+    np.testing.assert_array_equal(c[np.argsort(h)], oc)
+    assert all(s.bf is not None for s in pass1.shards)
     monkeypatch.setenv("YAK_TPU_MESH", "1")
+    meshes = []
+    real = pmesh.count_file_mesh
+    monkeypatch.setattr(pmesh, "count_file_mesh",
+                        lambda fn, opt, mesh, **kw: meshes.append(len(mesh))
+                        or real(fn, opt, mesh, **kw))
     out = tmp_path / "cli.yak"
     assert _cli(cli.main, ["count", "-k17", "-b20", f"-K{CHUNK}", "-o",
                            str(out), data["reads"], link,
                            "--device", "cpu"])[0] == 0
-    assert out.read_bytes() == (tmp_path / "jax.yak").read_bytes()
+    assert meshes == [pmesh.FORCED_SHARDS] * 2
+    assert out.read_bytes() == want
 
 
 def test_make_mesh():

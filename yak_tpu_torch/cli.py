@@ -13,9 +13,9 @@ The device is chosen explicitly: `--device cuda|cuda:N|cpu` anywhere
 on the command line, else `cuda`.  When CUDA is asked for and absent,
 the CLI raises; it never falls back to the CPU on its own.
 
-`count` (but the literal -b two-pass) and `qv` of k <= 31 run on a mesh
-(`_auto_mesh`, YAK_TPU_MESH) as in the JAX package; the other commands
-stay on one device.
+`count`, `qv`, `chkerr`, `triobin`, `trioeval` and `sexchr` of k <= 31
+run on a mesh (`_auto_mesh`, YAK_TPU_MESH) where the JAX package's CLI
+runs them on its mesh; the other commands stay on one device.
 """
 
 import os
@@ -131,7 +131,7 @@ def _mesh_table(t, mesh):
 
 
 def main_count(argv, device):
-    from yak_tpu_torch.models.count import CountOpts, count, literal_two_pass
+    from yak_tpu_torch.models.count import CountOpts, count
     o, pos = _getopt(argv, {"k": 1, "p": 1, "K": 1, "t": 1, "b": 1, "H": 1,
                             "o": 1, "X": 0})
     opt = CountOpts(device=str(device))
@@ -175,10 +175,8 @@ def main_count(argv, device):
             raise RuntimeError("-X needs the native library (native/), "
                                "which did not build or is disabled by "
                                "YAK_TPU_NO_NATIVE")
-    # the literal -b two-pass stays on one device (the mesh's Bloom
-    # slices are not yet ported); its output is the same bytes
     mesh = _auto_mesh(opt.k, device)
-    if mesh is not None and not literal_two_pass(pos, opt):
+    if mesh is not None:
         from yak_tpu_torch.parallel.mesh import count_mesh
         h = count_mesh(pos, opt, mesh)
     else:
@@ -388,7 +386,11 @@ def main_chkerr(argv, device):
     if len(pos) < 2:
         return _usage(["Usage: yak_tpu_torch chkerr [options] <count.yak> "
                        "<seq.fa>"])
-    ce(opt, KmerTable.restore(pos[0], device), pos[1])
+    ch = KmerTable.restore(pos[0], device)
+    mesh = _auto_mesh(ch.k, device)
+    if mesh is not None:
+        ch = _mesh_table(ch, mesh)
+    ce(opt, ch, pos[1])
     return 0
 
 
@@ -405,6 +407,9 @@ def main_triobin(argv, device):
         return _usage(["Usage: yak_tpu_torch triobin [options] <pat.yak> "
                        "<mat.yak> <seq.fa>"])
     ch = load_trio_tables(pos[0], pos[1], opt, device)
+    mesh = _auto_mesh(ch.k, device)
+    if mesh is not None:
+        ch = _mesh_table(ch, mesh)
     kw = {}
     if "K" in o: kw["chunk_cap"] = _parse_num(o["K"])
     tb(opt, ch, pos[2], **kw)
@@ -428,6 +433,9 @@ def main_trioeval(argv, device):
         return _usage(["Usage: yak_tpu_torch trioeval [options] <pat.yak> "
                        "<mat.yak> <seq.fa>"])
     ch = load_trio_tables(pos[0], pos[1], opt, device)
+    mesh = _auto_mesh(ch.k, device)
+    if mesh is not None:
+        ch = _mesh_table(ch, mesh)
     cnt = ch.hist()
     print(f"[M::trioeval] {cnt[0 << 2 | 2]} file1-specific k-mers and "
           f"{cnt[2 << 2 | 0]} file2-specific k-mers", file=sys.stderr)
@@ -444,8 +452,11 @@ def main_sexchr(argv, device):
     if len(pos) < 5:
         return _usage(["Usage: yak_tpu_torch sexchr [options] <chrY.yak> "
                        "<chrX.yak> <PAR.yak> <hap1.fa> <hap2.fa>"])
-    sc(opt, load_sexchr_tables(pos[0], pos[1], pos[2], device),
-       [pos[3], pos[4]])
+    ch = load_sexchr_tables(pos[0], pos[1], pos[2], device)
+    mesh = _auto_mesh(ch.k, device)
+    if mesh is not None:
+        ch = _mesh_table(ch, mesh)
+    sc(opt, ch, [pos[3], pos[4]])
     return 0
 
 

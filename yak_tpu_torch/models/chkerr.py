@@ -15,8 +15,13 @@ merges runs that span a chunk boundary (`_ChkerrFold`, carried over
 unchanged).  With the psort engine (YAK_TPU_PSORT=1,
 `countstep.psort_enabled`, read per run) the query sort and the marker
 step run through the sort kernel: the markers are sorted by lane, in
-place of the compaction (the JAX package's psort branch).  Not ported
-here: the mesh path (`_main_chkerr_mesh`, ROADMAP.md Queue 1).
+place of the compaction (the JAX package's psort branch).
+
+A MeshTable (yak_tpu's `_main_chkerr_mesh`, chkerr.py:230-265) takes
+the routed lookups of `parallel.mesh.mesh_routed_groups`, and
+each chunk's marker mid and compaction (or marker sort) run on the
+chunk's device, with the same budget and the same copy of every marker
+past it.
 """
 
 import sys
@@ -26,6 +31,7 @@ import numpy as np
 
 from yak_tpu_torch.io.pack import pack_chunk_planes
 from yak_tpu_torch.ops import countstep
+from yak_tpu_torch.parallel.mesh import MeshTable, mesh_lookup_posts
 from yak_tpu_torch.utils import (host_markers, lookup_pipeline, settle,
                                  to_host_async)
 
@@ -44,35 +50,40 @@ def main_chkerr(opt, table, seq_fn, out=None):
     were copied to the host behind an event of their own (no wait for
     chunk i).  Only the first CHKERR_MAX_RUNS markers are copied ahead;
     a chunk with more copies all of them from its compacted planes,
-    which stay on the device until the chunk is folded."""
+    which stay on the device until the chunk is folded.  A MeshTable
+    takes its routed lookups (module note)."""
     out = out or sys.stdout
     k = table.k
     table.flush()
-    dev = table.device
     chunk = max(1 << 14, min(int(opt.chunk_size), 1 << 23))
     chunk = -(-chunk // 1024) * 1024
     M = chunk - k + 1
     fold = _ChkerrFold(opt, k, out)
     psort = countstep.psort_enabled()
     mark = countstep.run_marker_sort if psort else countstep.run_mark_compact
+    maxr = countstep.CHKERR_MAX_RUNS
 
-    def dispatch(packed):
-        carg = pack_chunk_planes(packed, dev)
-        vals, valid = countstep.lookup_chunk(carg, k, table.keys,
-                                             table.cnt, table.size,
-                                             psort=psort)
+    def post(_packed, vals, valid):
         khi, runlen, n = countstep.chkerr_mark_mid(vals, valid,
                                                    int(opt.min_cnt), M)
         planes = mark(khi, runlen)
-        maxr = countstep.CHKERR_MAX_RUNS
         return planes, to_host_async((n, planes[0][:maxr], planes[1][:maxr]))
 
-    for packed, (planes, host) in lookup_pipeline(seq_fn, chunk, k,
-                                                  dispatch):
+    if isinstance(table, MeshTable):
+        # yak_tpu's _main_chkerr_mesh: a post a chunk on its own device
+        stream = mesh_lookup_posts(seq_fn, table, chunk, post, psort=psort)
+    else:
+        def dispatch(packed):
+            carg = pack_chunk_planes(packed, table.device)
+            vals, valid = countstep.lookup_chunk(carg, k, table.keys,
+                                                 table.cnt, table.size,
+                                                 psort=psort)
+            return post(packed, vals, valid)
+        stream = lookup_pipeline(seq_fn, chunk, k, dispatch)
+    for packed, (planes, host) in stream:
         # past the budget (a low-coverage table against a large input)
         # the compacted planes on the device hold every marker
-        lanes, lens = host_markers(planes, *settle(host),
-                                   countstep.CHKERR_MAX_RUNS)
+        lanes, lens = host_markers(planes, *settle(host), maxr)
         fold.chunk(packed, lanes, lens, M)
     fold.finish()
 

@@ -1,17 +1,19 @@
 """The per-segment sums loop of sexchr: one row of four sums a
 sequence.
 
-Port of the one-device part of `yak_tpu/models/scan.py`
-(`scan_seg_sums`, `_fold_seg_sums`).  Per record-meta chunk, on the
-table's device: the lookups (`countstep.lookup_chunk`: extract, query
-sort, the JOIN kernel) and `countstep.sexchr_reduce`, which reduces the
-value stream to four sums a segment, one segment a record piece of the
-chunk; only the sums come back, through the lookup workloads' 2-deep
-pipeline (`utils.lookup_pipeline`).  The host adds up the pieces of a
-sequence that spans chunks.  The JAX package's general post and its
-per-position scan (`scan_file`) have no second user here, and the mesh
-versions (`scan_seg_sums_mesh`, `scan_file_mesh`, ROADMAP.md Queue 1)
-are not ported.
+Port of `yak_tpu/models/scan.py`'s `scan_seg_sums` and
+`_fold_seg_sums`.  Per record-meta chunk, on the table's device: the
+lookups (`countstep.lookup_chunk`: extract, query sort, the JOIN
+kernel) and `countstep.sexchr_reduce`, which reduces the value stream
+to four sums a segment, one segment a record piece of the chunk; only
+the sums come back, through the lookup workloads' 2-deep pipeline
+(`utils.lookup_pipeline`).  The host adds up the pieces of a sequence
+that spans chunks (`_fold_seg_sums`).  `scan_seg_sums_mesh` (yak_tpu/models/scan.py:
+187-225) does the same against a MeshTable: the routed lookups of
+`parallel.mesh.mesh_routed_groups`, each chunk's sums on its own
+device.  The JAX package's general post and its per-position scans
+(`scan_file`, `scan_file_mesh`) have no user in the port and are not
+ported.
 """
 
 import numpy as np
@@ -19,6 +21,7 @@ import torch
 
 from yak_tpu_torch.io.pack import pack_chunk_planes
 from yak_tpu_torch.ops import countstep
+from yak_tpu_torch.parallel.mesh import mesh_lookup_posts
 from yak_tpu_torch.utils import lookup_pipeline, settle, to_host_async
 
 
@@ -29,29 +32,49 @@ def scan_seg_sums(fn, table, chunk):
     read once a run."""
     k = table.k
     table.flush()
-    dev = table.device
-    M = chunk - k + 1
+    post = _sums_post(chunk - k + 1)
     psort = countstep.psort_enabled()
 
     def dispatch(packed):
+        carg = pack_chunk_planes(packed, table.device)
+        vals, valid = countstep.lookup_chunk(carg, k, table.keys, table.cnt,
+                                             table.size, psort=psort)
+        return post(packed, vals, valid)
+
+    yield from _fold_seg_sums(_settled(lookup_pipeline(fn, chunk, k,
+                                                       dispatch)))
+
+
+def scan_seg_sums_mesh(fn, mtable, chunk):
+    """scan_seg_sums against a MeshTable: a group's routed lookups, then
+    each chunk's sums (`countstep.sexchr_reduce`) on the chunk's
+    device."""
+    mtable.flush()
+    post = _sums_post(chunk - mtable.k + 1)
+    yield from _fold_seg_sums(_settled(mesh_lookup_posts(
+        fn, mtable, chunk, post, psort=countstep.psort_enabled())))
+
+
+def _sums_post(M):
+    """The post of a chunk's lookup: its four segment sums, one segment a
+    record piece, copied to the host behind an event."""
+    def post(packed, vals, valid):
         nseq = len(packed.rec_gid)
         ns = max(1 << 12, 1 << int(max(nseq - 1, 1)).bit_length())
         bounds = np.full(ns + 1, M, np.int32)
         bounds[:nseq] = np.minimum(packed.rec_start, M)
-        carg = pack_chunk_planes(packed, dev)
-        vals, valid = countstep.lookup_chunk(carg, k, table.keys, table.cnt,
-                                             table.size, psort=psort)
-        sums = countstep.sexchr_reduce(vals, valid,
-                                       torch.from_numpy(bounds).to(dev), M)
+        sums = countstep.sexchr_reduce(
+            vals, valid, torch.from_numpy(bounds).to(vals.device), M)
         return ns, to_host_async((sums,))
+    return post
 
-    def stream():
-        for packed, (ns, host) in lookup_pipeline(fn, chunk, k, dispatch):
-            nseq = len(packed.rec_gid)
-            r = settle(host)[0].numpy().reshape(4, ns)[:, :nseq]
-            yield packed, r
 
-    yield from _fold_seg_sums(stream())
+def _settled(stream):
+    """(packed, sums [4, nseq]) from a stream of (packed, _sums_post's
+    result)."""
+    for packed, (ns, host) in stream:
+        nseq = len(packed.rec_gid)
+        yield packed, settle(host)[0].numpy().reshape(4, ns)[:, :nseq]
 
 
 def _fold_seg_sums(stream):

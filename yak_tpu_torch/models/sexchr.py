@@ -8,7 +8,10 @@ hap2 are scanned, and each contig gets its number of k-mers, of k-mers
 with any flag, and of k-mers with flag 1 or 2 alone (sc_worker,
 sexchr.c:61-71): per chunk, the lookups and the four segment sums run
 on the table's device (`models/scan.scan_seg_sums` with
-`countstep.sexchr_reduce`).  `groupxy` runs on the host.
+`countstep.sexchr_reduce`), or, for a MeshTable, through the routed
+lookups with each chunk's sums on its own device
+(`scan.scan_seg_sums_mesh`, yak_tpu/models/sexchr.py:49-60).
+`groupxy` runs on the host.
 """
 
 import sys
@@ -16,7 +19,8 @@ from dataclasses import dataclass
 
 from yak_tpu_torch import (YAK_LOAD_SEXCHR1, YAK_LOAD_SEXCHR2,
                            YAK_LOAD_SEXCHR3)
-from yak_tpu_torch.models.scan import scan_seg_sums
+from yak_tpu_torch.models.scan import scan_seg_sums, scan_seg_sums_mesh
+from yak_tpu_torch.parallel.mesh import MeshTable
 from yak_tpu_torch.table import KmerTable
 
 
@@ -45,8 +49,10 @@ def main_sexchr(opt, ch, hap_fns, out=None):
     out.write(SEXCHR_HEADER)
     chunk = max(1 << 14, min(int(opt.chunk_size), 1 << 23))
     chunk = -(-chunk // 1024) * 1024
+    seg_sums = (scan_seg_sums_mesh if isinstance(ch, MeshTable)
+                else scan_seg_sums)
     for hap, fn in enumerate(hap_fns, start=1):
-        for name, _L, (n_k, n_sexchr, n_sex1, n_sex2) in scan_seg_sums(
+        for name, _L, (n_k, n_sexchr, n_sex1, n_sex2) in seg_sums(
                 fn, ch, chunk):
             out.write(f"S\t{name}\t{hap}\t0\t{n_k}\t{n_sexchr}\t{n_sex1}\t"
                       f"{n_sex2}\n")

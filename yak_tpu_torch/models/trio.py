@@ -27,8 +27,14 @@ A chunk with more markers than its budget (TRIOBIN_MAX_DIFF,
 TRIOEVAL_MAX_RUNS) copies all of them from its compacted planes, which
 stay on the device until the chunk is folded; the JAX package's
 per-position fallback exists because its marker planes are cut to the
-budget.  Not ported here: the mesh drivers (`_main_triobin_fused_mesh`,
-`_trioeval_fused_mesh`, ROADMAP.md Queue 1).
+budget.
+
+A MeshTable takes the mesh paths (yak_tpu's
+`_main_triobin_fused_mesh` and `_trioeval_fused_mesh`,
+yak_tpu/models/trio.py:394-574, 765-812): the routed lookups of
+`parallel.mesh.mesh_routed_groups`, then each chunk's typing,
+reductions and markers on the chunk's own device
+(`parallel.mesh.mesh_lookup_posts`), folded by the same host code.
 """
 
 import sys
@@ -40,6 +46,7 @@ import torch
 from yak_tpu_torch import YAK_LOAD_TRIOBIN1, YAK_LOAD_TRIOBIN2
 from yak_tpu_torch.io.pack import pack_chunk_planes
 from yak_tpu_torch.ops import countstep
+from yak_tpu_torch.parallel.mesh import MeshTable, mesh_lookup_posts
 from yak_tpu_torch.table import KmerTable
 from yak_tpu_torch.utils import (host_markers, lookup_pipeline, settle,
                                  to_host_async)
@@ -273,6 +280,23 @@ class _TriobinFold:
         self.bo.flush()
 
 
+def _stream(seq_fn, table, chunk, post, psort):
+    """(packed, post(packed, vals, valid)) for each chunk of `seq_fn` with
+    records: one device, the chunk's lookup (`countstep.lookup_chunk`)
+    and post in the 2-deep pipeline; a MeshTable, the mesh path's
+    routed lookups, each post on its chunk's device."""
+    if isinstance(table, MeshTable):
+        return mesh_lookup_posts(seq_fn, table, chunk, post, psort=psort)
+
+    def dispatch(packed):
+        carg = pack_chunk_planes(packed, table.device)
+        vals, valid = countstep.lookup_chunk(carg, table.k, table.keys,
+                                             table.cnt, table.size,
+                                             psort=psort)
+        return post(packed, vals, valid)
+    return lookup_pipeline(seq_fn, chunk, table.k, dispatch)
+
+
 def _chunk_len(batch_bases, chunk_cap):
     chunk = max(1 << 14, min(batch_bases, chunk_cap))
     return -(-chunk // 1024) * 1024
@@ -284,11 +308,10 @@ def main_triobin(opt, table, seq_fn, out=None, chunk_cap=1 << 23,
     lookups, the typing and the per-contig sums on the table's device
     (`countstep.triobin_reduce`), with -p the difference markers; the
     host merges boundary streaks across chunk-spanning pieces and
-    classifies."""
+    classifies.  A MeshTable takes the mesh path (module note)."""
     out = out or sys.stdout
     k = table.k
     table.flush()
-    dev = table.device
     chunk = _chunk_len(batch_bases, chunk_cap)
     M = chunk - k + 1
     emit_diff = bool(opt.print_diff)
@@ -297,18 +320,15 @@ def main_triobin(opt, table, seq_fn, out=None, chunk_cap=1 << 23,
     mark = countstep.run_diff_sort if psort else countstep.run_mark_compact
     maxd = countstep.TRIOBIN_MAX_DIFF
 
-    def dispatch(packed):
+    def post(packed, vals, valid):
         nseq = len(packed.rec_gid)
         ns = max(1 << 12, 1 << int(max(nseq - 1, 1)).bit_length())
         meta = np.full(ns + 2, M, np.int32)
         meta[:nseq] = np.minimum(packed.rec_start, M)
         meta[-1] = int(packed.rec_start[-1] + packed.rec_take[-1] - k)
-        carg = pack_chunk_planes(packed, dev)
-        vals, valid = countstep.lookup_chunk(carg, k, table.keys, table.cnt,
-                                             table.size, psort=psort)
         flag, typ = countstep.trio_types(vals, valid)
-        sums = countstep.triobin_reduce(flag, typ, valid,
-                                        torch.from_numpy(meta).to(dev), k, M)
+        sums = countstep.triobin_reduce(
+            flag, typ, valid, torch.from_numpy(meta).to(vals.device), k, M)
         if not emit_diff:
             return ns, None, to_host_async((sums,))
         khi, pay, n = countstep.triobin_diff_mid(flag, valid, M)
@@ -316,8 +336,8 @@ def main_triobin(opt, table, seq_fn, out=None, chunk_cap=1 << 23,
         return ns, planes, to_host_async(
             (sums, n, planes[0][:maxd], planes[1][:maxd]))
 
-    for packed, (ns, planes, host) in lookup_pipeline(seq_fn, chunk, k,
-                                                      dispatch):
+    for packed, (ns, planes, host) in _stream(seq_fn, table, chunk, post,
+                                              psort):
         nseq = len(packed.rec_gid)
         host = settle(host)
         d_txt = [""] * nseq
@@ -404,11 +424,11 @@ def main_trioeval(opt, table, seq_fn, out=None, chunk_cap=1 << 23,
     """Phase-block switch statistics (te_worker + summary,
     trioeval.c:91-117,195-209): per chunk, the lookups, the typing and
     the run markers on the table's device; the host replays the
-    per-run chain (`_TeChainFold`)."""
+    per-run chain (`_TeChainFold`).  A MeshTable takes the mesh path
+    (module note)."""
     out = out or sys.stdout
     k = table.k
     table.flush()
-    dev = table.device
     chunk = _chunk_len(batch_bases, chunk_cap)
     M = chunk - k + 1
     glob = {"n_pair": 0, "n_site": 0, "n_switch": 0, "n_err": 0,
@@ -420,19 +440,16 @@ def main_trioeval(opt, table, seq_fn, out=None, chunk_cap=1 << 23,
     mark = countstep.run_marker_sort if psort else countstep.run_mark_compact
     maxr = countstep.TRIOEVAL_MAX_RUNS
 
-    def dispatch(packed):
+    def post(packed, vals, valid):
         we = int(packed.rec_start[-1] + packed.rec_take[-1] - k)
-        carg = pack_chunk_planes(packed, dev)
-        vals, valid = countstep.lookup_chunk(carg, k, table.keys, table.cnt,
-                                             table.size, psort=psort)
         _flag, typ = countstep.trio_types(vals, valid)
         khi, pay, n = countstep.trioeval_mark_mid(typ, we, int(opt.min_n), M)
         planes = mark(khi, pay)
         return we, planes, to_host_async(
             (n, planes[0][:maxr], planes[1][:maxr]))
 
-    for packed, (we, planes, host) in lookup_pipeline(seq_fn, chunk, k,
-                                                      dispatch):
+    for packed, (we, planes, host) in _stream(seq_fn, table, chunk, post,
+                                              psort):
         lanes, pays = host_markers(planes, *settle(host), maxr)
         fold.chunk(packed, lanes, pays >> 2, pays & 3, M, we)
     fold.finish()

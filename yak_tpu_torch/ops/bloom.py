@@ -14,7 +14,11 @@ and a k-mer enters the count table only when all n_hashes bits were
 already set (htab.c:63-64).
 
 The filter is the whole 2^n_shift-bit array laid out shard-major, as
-int32 words holding the u32 bit patterns.  Hashes are int64 bit patterns
+int32 words holding the u32 bit patterns; on a mesh of 2^s shards each
+shard holds the slice of its own `pre`-bit shards, 2^(n_shift - s)
+bits (`shard_shift` = s), whose probe positions `probe_geom` gives in
+the slice, so the serial-exact gate's packed positions are s bits
+narrower.  Hashes are int64 bit patterns
 of u64 values, so every right shift of a full hash is the logical `srl`,
 and every word and block index is int64 (at -b37 the filter has 2^32
 words).  A batch of unique keys (the `active` lanes) is inserted as:
@@ -57,20 +61,24 @@ DENSE_WORDS = 1 << 22                        # dense tail up to 16 MiB
 
 
 def make_bloom(n_shift, device):
-    """An empty filter of 2^n_shift bits (n_shift >= 9): int32 words."""
+    """An empty filter of 2^n_shift bits (n_shift >= 9): int32 words (a
+    mesh shard's slice of a 2^b-bit filter is make_bloom(b -
+    shard_shift))."""
     if n_shift < YAK_BLK_SHIFT:
         raise ValueError(f"Bloom filter of 2^{n_shift} bits: at least one "
                          f"512-bit block (n_shift >= 9) is needed")
     return torch.zeros(1 << (n_shift - 5), dtype=torch.int32, device=device)
 
 
-def probe_geom(h, *, pre, n_shift, n_hashes):
+def probe_geom(h, *, pre, n_shift, n_hashes, shard_shift=0):
     """Probe geometry of yak_bf_insert (bbf.c:25-33) for int64 hashes:
-    each key's global block bit offset `base` and its n_hashes in-block
-    bit positions `zs` (each < 512), all int64."""
+    each key's block bit offset `base` in its filter and its n_hashes
+    in-block bit positions `zs` (each < 512), all int64.  shard_shift:
+    the filter is a mesh shard's slice (see `bloom_insert`), so the
+    shard's filter is indexed by shard >> shard_shift."""
     ns_ = n_shift - pre
     xbits = ns_ - YAK_BLK_SHIFT
-    shard = h & ((1 << pre) - 1)
+    shard = (h & ((1 << pre) - 1)) >> shard_shift
     x = srl(h, pre)                            # < 2^63: `>>` is logical
     y = x & ((1 << xbits) - 1)
     h1 = (x >> xbits) & BLK_MASK
@@ -84,11 +92,13 @@ def probe_geom(h, *, pre, n_shift, n_hashes):
     return base, zs
 
 
-def exact_gate_fits(n_shift, n_hashes, rank_bound):
+def exact_gate_fits(n_shift, n_hashes, rank_bound, shard_shift=0):
     """Whether the serial-exact gate's packed (position, rank, probe) sort
-    key of a batch with ranks below rank_bound fits below 2^63."""
+    key of a batch with ranks below rank_bound fits below 2^63; a slice
+    of a 2^n_shift-bit filter (shard_shift) has positions of
+    n_shift - shard_shift bits."""
     rank_bits = max(1, int(max(rank_bound - 1, 1)).bit_length())
-    return n_hashes <= 8 and n_shift + rank_bits + 3 < 64
+    return n_hashes <= 8 and n_shift - shard_shift + rank_bits + 3 < 64
 
 
 def probe_seen(bf, base, zs):
@@ -152,7 +162,7 @@ def _shift_in(x, fill):
 
 
 def bloom_insert(bf, h, active, rank=None, *, pre, n_shift, n_hashes,
-                 rank_bound=0):
+                 rank_bound=0, shard_shift=0):
     """Query-and-set the active lanes of `h` (unique hashes).
 
     Returns (bf', n_before, undo): n_before[i] is the number of probed
@@ -165,9 +175,18 @@ def bloom_insert(bf, h, active, rank=None, *, pre, n_shift, n_hashes,
     below rank_bound; when given and the packed key fits
     (exact_gate_fits), n_before follows the reference's serial order
     (`serial_count`), else every key sees the filter as it was before
-    the batch, as in yak_tpu."""
-    base, zs = probe_geom(h, pre=pre, n_shift=n_shift, n_hashes=n_hashes)
-    if rank is not None and exact_gate_fits(n_shift, n_hashes, rank_bound):
+    the batch, as in yak_tpu.
+
+    shard_shift (a mesh of 2^shard_shift shards, shard d owning the
+    hashes with h & (2^shard_shift - 1) == d): `bf` is shard d's slice
+    of 2^(n_shift - shard_shift) bits, which holds the filters of its
+    own `pre`-bit shards in order, each bit for bit the same as in the
+    one-device filter (the per-shard filters of htab.c:23-27 dealt to
+    the mesh's shards, yak_tpu/ops/bloom.py:139-160)."""
+    base, zs = probe_geom(h, pre=pre, n_shift=n_shift, n_hashes=n_hashes,
+                          shard_shift=shard_shift)
+    if rank is not None and exact_gate_fits(n_shift, n_hashes, rank_bound,
+                                            shard_shift):
         n_before = serial_count(bf, base, zs, active, rank, rank_bound)
     else:
         n_before = probe_count(bf, base, zs, active)

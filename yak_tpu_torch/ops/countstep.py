@@ -101,7 +101,9 @@ def extract(carg, k):
     layout (2 planes on the wire), ("planes", (plo, phi, pnn), L) for
     the general layout (3 planes), or ("hashes", (h, valid)) for a batch
     whose hashes are already extracted (a mesh shard's routed batch,
-    `table.KmerTable.fold_hashes`), returned as it is."""
+    `table.KmerTable.fold_hashes`), returned as it is; such a batch may
+    carry a third item, (rank, rank_bound), its lanes' serial ranks for
+    the serial-exact gate (`count_step`)."""
     if carg[0] == "hashes":
         return carg[1]
     if carg[0] == "periodic":
@@ -131,11 +133,13 @@ def count_step(carg, k, tkeys, tcnt, size, create, gate=None, hook=None,
     """One fold: extract + sort [+ Bloom gate post] + merge-reduce +
     finalize.  k >= 32 folds wide-encoded keys.
 
-    gate: None, or (bf, pre, bf_shift, bf_n_hash, exact) to run the gated
-    create pass (htab.c:61-70) against the filter bf; exact: through the
+    gate: None, or (bf, pre, bf_shift, bf_n_hash, exact, shard_shift) to
+    run the gated create pass (htab.c:61-70) against the filter bf (a
+    mesh shard's slice when shard_shift > 0); exact: through the
     serial-exact gate post (`bloom_gate_exact_post`, -X), whose ranks
     come from a stable torch.sort, whatever `psort` says (the table
-    refuses -X on the psort engine, as yak_tpu does).  psort: the psort
+    refuses -X on the psort engine, as yak_tpu does), and from the
+    carg's (rank, rank_bound) where a hash batch carries them.  psort: the psort
     engine's fold, whose batch sort is the sort kernel and whose gated
     fold takes the plain gate post (yak_tpu/table.py:414-420).
 
@@ -157,12 +161,16 @@ def count_step(carg, k, tkeys, tcnt, size, create, gate=None, hook=None,
     mark("sort")
     weights = bf = undo = None
     if exact:
-        weights, bf, undo = bloom_gate_exact_post(bkeys, perm, *gate[:4],
-                                                  wide=wide)
+        rank, rank_bound = (carg[2] if carg[0] == "hashes" and len(carg) > 2
+                            else (None, None))
+        weights, bf, undo = bloom_gate_exact_post(
+            bkeys, perm, *gate[:4], wide=wide, shard_shift=gate[5],
+            rank=rank, rank_bound=rank_bound)
         mark("gate")
     elif gate is not None:
         post = bloom_gate_post if psort else run_bloom_gate_post
-        weights, bf, undo = post(bkeys, *gate[:4], wide=wide)
+        weights, bf, undo = post(bkeys, *gate[:4], wide=wide,
+                                 shard_shift=gate[5])
         mark("gate")
     okeys, ocnt, new_size, n_new = merge.merge_reduce(
         tkeys, tcnt, size, bkeys, create, weights=weights, wide=wide)
@@ -201,49 +209,62 @@ def _gate_weights(ends, mult, n_before, bf_n_hash):
     return torch.where(ends, add, 0).to(torch.int32)
 
 
-def bloom_gate_post(bkeys, bf, pre, bf_shift, bf_n_hash, wide=False):
+def bloom_gate_post(bkeys, bf, pre, bf_shift, bf_n_hash, wide=False,
+                    shard_shift=0):
     """The plain gate post (countstep.get_bloom_gate_post) on a sorted
     batch: run-end dedup, one `bloom.bloom_insert` of the run ends.
     The probe hashes the raw key, so wide keys are decoded first.
+    shard_shift: bf is a mesh shard's slice (bloom.bloom_insert).
     Returns (weights int32 [B], bf', undo) (bloom.bloom_insert)."""
     ends, mult = _runs(bkeys)
     h = decode_wide(bkeys) if wide else bkeys
     bf2, n_before, undo = bloom.bloom_insert(
-        bf, h, ends, pre=pre, n_shift=bf_shift, n_hashes=bf_n_hash)
+        bf, h, ends, pre=pre, n_shift=bf_shift, n_hashes=bf_n_hash,
+        shard_shift=shard_shift)
     return _gate_weights(ends, mult, n_before, bf_n_hash), bf2, undo
 
 
 def bloom_gate_exact_post(bkeys, perm, bf, pre, bf_shift, bf_n_hash,
-                          wide=False):
+                          wide=False, shard_shift=0, rank=None,
+                          rank_bound=None):
     """The serial-exact gate post (countstep._gate_batch(exact=True) with
     _serial_rank) on a batch sorted stably with its permutation `perm`:
     as bloom_gate_post, with each run's serial rank, the flat-batch lane
     of its first occurrence, which is perm at the run's first lane.  The
     flat batch is the fold's chunks in order, each chunk's windows in
     base order (the all-N pad chunks invalid), so the lane is the serial
-    buffer position (htab.c:57-70).  Returns (weights, bf', undo)."""
+    buffer position (htab.c:57-70).  A batch not in serial order (a mesh
+    shard's routed batch) gives each lane's serial rank in `rank` (int
+    [B], below rank_bound), read at that first lane; else rank_bound is
+    B.  Returns (weights, bf', undo)."""
     ends, mult = _runs(bkeys)
     lane = torch.arange(bkeys.numel(), dtype=torch.int64,
                         device=bkeys.device)
-    rank = perm[lane - mult + 1]
+    first = perm[lane - mult + 1]
+    if rank is None:
+        rank, rank_bound = first, bkeys.numel()
+    else:
+        rank = rank[first]
     h = decode_wide(bkeys) if wide else bkeys
     bf2, n_before, undo = bloom.bloom_insert(
         bf, h, ends, rank, pre=pre, n_shift=bf_shift, n_hashes=bf_n_hash,
-        rank_bound=bkeys.numel())
+        rank_bound=rank_bound, shard_shift=shard_shift)
     return _gate_weights(ends, mult, n_before, bf_n_hash), bf2, undo
 
 
 SENT_PAD = (1 << 32) - 1   # a data key past every sentinel
 
 
-def gate_sent_fits(bf_shift):
+def gate_sent_fits(bf_shift, shard_shift=0):
     """The sentinel post needs its (pos << 1 | 1) data keys below
-    SENT_PAD and one sentinel per filter word (countstep.gate_sent_fits)."""
-    return bf_shift <= 30
+    SENT_PAD and one sentinel per filter word (countstep.gate_sent_fits):
+    decided on the filter's own bits, a mesh shard's slice having
+    bf_shift - shard_shift."""
+    return bf_shift - shard_shift <= 30
 
 
 def bloom_gate_sentinel_post(bkeys, bf, pre, bf_shift, bf_n_hash,
-                             wide=False):
+                             wide=False, shard_shift=0):
     """The sentinel-merge gate post (countstep._gate_sent_a/_b): the
     probe as in bloom_gate_post, then the filter update without a
     searchsorted.  The run ends' probed positions enter one sort as data
@@ -253,11 +274,13 @@ def bloom_gate_sentinel_post(bkeys, bf, pre, bf_shift, bf_n_hash,
     read at the sentinels (pulled out in word order by the compaction
     kernel), gives each word's OR mask as the difference of adjacent
     sentinels (sums of unique bits, exact mod 2^32).  The filter comes
-    back new; the undo record is the pre-fold filter itself."""
+    back new; the undo record is the pre-fold filter itself.  On a mesh
+    shard's slice (shard_shift) positions and words are the slice's
+    own."""
     ends, mult = _runs(bkeys)
     h = decode_wide(bkeys) if wide else bkeys
     base, zs = bloom.probe_geom(h, pre=pre, n_shift=bf_shift,
-                                n_hashes=bf_n_hash)
+                                n_hashes=bf_n_hash, shard_shift=shard_shift)
     n_before = bloom.probe_count(bf, base, zs, ends)
     nw = bf.shape[0]
     data = torch.stack([torch.where(ends, ((base + z) << 1) | 1, SENT_PAD)
@@ -275,14 +298,15 @@ def bloom_gate_sentinel_post(bkeys, bf, pre, bf_shift, bf_n_hash,
             bf | i32_bits(c[1:] - c[:-1]), bf)
 
 
-def run_bloom_gate_post(bkeys, bf, pre, bf_shift, bf_n_hash, wide=False):
+def run_bloom_gate_post(bkeys, bf, pre, bf_shift, bf_n_hash, wide=False,
+                        shard_shift=0):
     """The gated fold's post (countstep.run_bloom_gate_post): the
-    sentinel post where it fits (-b up to 30), else the plain post,
-    whose sparse tail serves the large filters (-b37).  Returns
-    (weights, bf', undo)."""
-    post = (bloom_gate_sentinel_post if gate_sent_fits(bf_shift)
-            else bloom_gate_post)
-    return post(bkeys, bf, pre, bf_shift, bf_n_hash, wide)
+    sentinel post where the filter (or a mesh shard's slice of it) fits
+    (up to 2^30 bits), else the plain post, whose sparse tail serves the
+    large filters (-b37).  Returns (weights, bf', undo)."""
+    post = (bloom_gate_sentinel_post
+            if gate_sent_fits(bf_shift, shard_shift) else bloom_gate_post)
+    return post(bkeys, bf, pre, bf_shift, bf_n_hash, wide, shard_shift)
 
 
 # -- lookups ------------------------------------------------------------

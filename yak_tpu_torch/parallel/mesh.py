@@ -39,10 +39,24 @@ Each shard is a `KmerTable` on its own device with its own capacity,
 grown by the one-fold-late replay alone (no capacity prior, as in
 `yak_tpu`'s mesh, whose chips all grow together only because
 shard_map needs one shape), and settling its own plane state, so
-`mesh_finalize_psort` has no counterpart.  Not ported here (ROADMAP.md
-Queue 1 step 6): the Bloom-gated pass of `-b` on a mesh (per-shard
-filter slices), whose literal two-pass raises NotImplementedError, and
-the mesh paths of chkerr, triobin, trioeval and sexchr.
+`mesh_finalize_psort` has no counterpart.
+
+The -b two-pass (`count_mesh`): each shard holds its slice of the
+Bloom filter, the filters of its own `pre`-bit shards
+(`ops/bloom.bloom_insert` with shard_shift = log2(D)), and gates the
+batch routed to it in one fold (`yak_tpu`'s build_count_step with its
+bloom_cfg, yak_tpu/parallel/mesh.py:338-426), so its gating batches
+are a group's hashes, as a one-device table's are with flush_lanes =
+D * M.  For -X, a shard's serial rank of a hash is src * M + lane
+(`_serial_ranks`), the position of its window in the group's chunks.
+Where that packed rank key would not fit, -X is refused before the
+count (`yak_tpu`'s mesh falls back to the cheap gate instead, which
+only its dump's cross-check can catch).
+
+The lookup commands (qv, chkerr, triobin, trioeval, sexchr) take a
+MeshTable through `mesh_routed_groups`, each chunk's post on the
+chunk's own device (`mesh_lookup_posts`).  `yak_tpu`'s per-position
+`scan_file_mesh` has no user in the port and is not ported.
 """
 
 import sys
@@ -57,12 +71,9 @@ from yak_tpu_torch.io.chunks import ChunkSource
 from yak_tpu_torch.io.pack import pack_chunk_planes
 from yak_tpu_torch.models.count import _device_chunk, literal_two_pass
 from yak_tpu_torch.ops import countstep
-from yak_tpu_torch.table import KmerTable
+from yak_tpu_torch.table import KmerTable, check_exact_gate, makes_filter
 
 FORCED_SHARDS = 4    # D of the mesh YAK_TPU_MESH=1 forces on one device
-BLOOM_TODO = ("the Bloom-gated -b pass on a mesh (per-shard filter slices) "
-              "is not yet ported: ROADMAP.md Queue 1 step 6, 'the literal "
-              "-b two-pass on a mesh'")
 
 
 def make_mesh(n_devices=None, devices=None):
@@ -90,17 +101,23 @@ def make_mesh(n_devices=None, devices=None):
 
 class MeshTable:
     """A counting table sharded over a mesh: `shards[d]`, a KmerTable on
-    `mesh[d]`, holds the hashes h with h & (D-1) == d.  `cap` is the
-    largest shard's capacity (shards grow on their own)."""
+    `mesh[d]`, holds the hashes h with h & (D-1) == d, and, where the
+    options make a Bloom filter (bf_shift, bf_n_hash; bf_exact for -X),
+    its slice of it.  `cap` is the largest shard's capacity (shards grow
+    on their own)."""
 
-    def __init__(self, mesh, k, pre=10, cap_log2=16):
+    def __init__(self, mesh, k, pre=10, cap_log2=16, bf_shift=0,
+                 bf_n_hash=4, bf_exact=False):
         self.mesh = tuple(mesh)
         self.n_dev = len(self.mesh)
-        if pre < self.n_dev.bit_length() - 1:
+        nlog = self.n_dev.bit_length() - 1
+        if pre < nlog:
             raise ValueError("pre must be >= log2(n_devices)")
         self.k, self.pre = k, pre
         self.shards = [KmerTable(k, pre, cap_log2=cap_log2, cap_hinted=True,
-                                 device=dev) for dev in self.mesh]
+                                 device=dev, bf_shift=bf_shift,
+                                 bf_n_hash=bf_n_hash, bf_exact=bf_exact,
+                                 shard_shift=nlog) for dev in self.mesh]
 
     @classmethod
     def from_items(cls, mesh, k, pre, hashes, counts):
@@ -122,6 +139,10 @@ class MeshTable:
     @property
     def tot(self):
         return sum(s.tot for s in self.shards)
+
+    def destroy_bf(self):
+        for s in self.shards:
+            s.destroy_bf()
 
     def flush(self):
         for s in self.shards:
@@ -183,6 +204,20 @@ def _route(hv, mesh):
     return [torch.cat(parts) for parts in recv], (perms, counts)
 
 
+def _serial_ranks(meta, mesh, m):
+    """Each routed hash's serial rank in its group, src * m + lane (the
+    window's position in the group's chunks of m lanes each, as a
+    one-device fold of those chunks orders them), in receive order:
+    int64 [n_d] on mesh[d], from `_route`'s meta."""
+    perms, counts = meta
+    parts = [[] for _ in mesh]
+    for s, (perm, row) in enumerate(zip(perms, counts)):
+        sent = torch.split(perm[:int(row.sum())] + s * m, row.tolist())
+        for d, part in enumerate(sent):
+            parts[d].append(part.to(mesh[d]))
+    return [torch.cat(p) for p in parts]
+
+
 def _route_back(vals, meta, mesh, lanes):
     """Return the owners' values to the lanes they came from.  vals[d]
     int32 [n_d] on mesh[d] holds shard d's value of each hash it
@@ -239,45 +274,70 @@ def count_file_mesh(fn, opt, mesh, cap_log2=None, table=None, hook=None):
     a chunk a shard, routed, and folded by each shard's `fold_hashes`.
 
     table=None -> a new table of opt.k, opt.pre and 2^(cap_log2 or
-    opt.cap_log2) lanes a shard, create mode; otherwise increment the
-    table's existing keys only (recount, htab.c:71-75).  `hook`, when
-    given, is called with "start", "h2d", "extract", "route" and "fold"
-    as each group's phases are queued."""
+    opt.cap_log2) lanes a shard, with the Bloom filter of opt.bf_shift,
+    opt.bf_n_hash and opt.exact dealt to the shards, create mode (pass 1
+    of -b: each shard's fold of a group gated); otherwise increment the
+    table's existing keys only (pass 2 of -b, recount, htab.c:71-75).
+    With -X, a count whose serial rank key would not fit is refused
+    before it starts (ValueError).  `hook`, when given, is called with
+    "start", "h2d", "extract", "route" and "fold" as each group's phases
+    are queued."""
     create = table is None
+    chunk = _device_chunk(opt)
+    group_lanes = len(mesh) * (chunk - opt.k + 1)
+    exact = create and opt.exact and makes_filter(opt.bf_shift, opt.pre)
+    if exact:               # before the filter slices are made
+        check_exact_gate(opt.bf_shift, opt.bf_n_hash, group_lanes,
+                         group_lanes, len(mesh).bit_length() - 1)
     if create:
-        if opt.bf_shift > opt.pre and 9 <= opt.bf_shift - opt.pre <= 64 - 9:
-            raise NotImplementedError(BLOOM_TODO)
-        table = MeshTable(mesh, opt.k, opt.pre, cap_log2 or opt.cap_log2)
+        table = MeshTable(mesh, opt.k, opt.pre, cap_log2 or opt.cap_log2,
+                          bf_shift=opt.bf_shift, bf_n_hash=opt.bf_n_hash,
+                          bf_exact=opt.exact)
     mark = hook or (lambda _name: None)
-    for group in _groups(fn, _device_chunk(opt), opt.k, table.n_dev,
-                         min_len=opt.k):
+    for group in _groups(fn, chunk, opt.k, table.n_dev, min_len=opt.k):
         mark("start")
         hv = _extract_group(group, table.mesh, opt.k, mark)
         mark("extract")
-        recv, _meta = _route(hv, table.mesh)
+        recv, meta = _route(hv, table.mesh)
+        ranks = (_serial_ranks(meta, table.mesh, group_lanes // table.n_dev)
+                 if exact else [None] * table.n_dev)
         mark("route")
-        for shard, h in zip(table.shards, recv):
+        for shard, h, rank in zip(table.shards, recv, ranks):
             if h.numel():
                 shard.fold_hashes(h, torch.ones_like(h, dtype=torch.bool),
-                                  create)
+                                  create, rank, group_lanes)
         mark("fold")
     table.flush()
     return table
 
 
-def count_mesh(files, opt, mesh, cap_log2=None):
-    """`yak count` on a mesh.  Without -b, one count_file_mesh.  With -b
-    over one input (the same path twice, or one file), the same-file
-    shortcut of `models.count.count`: one ungated pass, then the shrink
-    to counts of 2 or more.  The literal -b two-pass raises
-    NotImplementedError (BLOOM_TODO); `count` on one device runs it."""
-    if literal_two_pass(files, opt):
-        raise NotImplementedError(BLOOM_TODO)
+def count_mesh(files, opt, mesh, cap_log2=None, hook=None):
+    """`yak count` on a mesh, with the -b protocol of `models.count.count`
+    (main.c:53-60): without -b, one count_file_mesh; with -b over one
+    input (the same path twice, or one file), the same-file shortcut,
+    one ungated pass; else the literal two-pass: pass 1 gated by each
+    shard's filter slice, the filter destroyed and the counts cleared,
+    pass 2 over files[1] (or files[0] again) increment-only.  With -b,
+    then, the shrink to counts of 2 or more (yak_tpu/parallel/mesh.py:
+    1147-1170, as the one-device count runs pass 2 also where the
+    options make no filter).  `hook`: count_file_mesh's, for each
+    pass."""
     if opt.bf_shift <= 0:
-        return count_file_mesh(files[0], opt, mesh, cap_log2=cap_log2)
-    table = count_file_mesh(files[0], replace(opt, bf_shift=0), mesh,
-                            cap_log2=cap_log2)
+        return count_file_mesh(files[0], opt, mesh, cap_log2=cap_log2,
+                               hook=hook)
+    if not literal_two_pass(files, opt):
+        table = count_file_mesh(files[0], replace(opt, bf_shift=0), mesh,
+                                cap_log2=cap_log2, hook=hook)
+    else:
+        table = count_file_mesh(files[0], opt, mesh, cap_log2=cap_log2,
+                                hook=hook)
+        table.destroy_bf()
+        table.clear_counts()
+        count_file_mesh(files[1] if len(files) >= 2 else files[0], opt,
+                        mesh, table=table, hook=hook)
     table.shrink(2, YAK_MAX_COUNT)
+    print(f"[M::count] {table.tot} distinct k-mers after shrinking",
+          file=sys.stderr)
     return table
 
 
@@ -315,3 +375,16 @@ def mesh_routed_groups(fn, mtable, chunk, psort=None, hook=None):
         mark("back")
         yield group, back, [valid for _h, valid in hv]
 
+
+
+def mesh_lookup_posts(fn, mtable, chunk, post, psort=None, hook=None):
+    """The lookup commands' stream on a mesh (the one-device
+    `utils.lookup_pipeline`): each group's routed lookups
+    (`mesh_routed_groups`), then post(packed, vals, valid) of each of its
+    chunks, queued on the chunk's own device, all before the group's
+    first chunk is yielded.  Yields (packed, post's result) in file
+    order."""
+    for group, vals, valid in mesh_routed_groups(fn, mtable, chunk,
+                                                 psort=psort, hook=hook):
+        outs = [post(p, v, ok) for p, v, ok in zip(group, vals, valid)]
+        yield from zip(group, outs)

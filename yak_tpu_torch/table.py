@@ -46,6 +46,11 @@ serial-exact gate (`countstep.bloom_gate_exact_post`), whose pass-1 key
 set is the reference's bit for bit even when pass 2 reads another file;
 a fold whose packed rank key would not fit refuses before it runs
 (`_warn_exact_gate`), as does the psort engine, which has no such gate.
+
+A shard of a `parallel.mesh.MeshTable` of 2^shard_shift shards holds
+its slice of the filter (2^(bf_shift - shard_shift) bits,
+`ops/bloom.bloom_insert`) and folds its routed batches through
+`fold_hashes`, gated in pass 1 like a fold of code chunks.
 The TPU package's transient-fault retry (`yak_tpu/table.py:493-502`) is
 deliberately absent: on the card it would hide a fault.
 """
@@ -72,6 +77,34 @@ def _log(msg):
     print(f"[M::yak_tpu_torch] {msg}", file=sys.stderr)
 
 
+def makes_filter(bf_shift, pre):
+    """Whether -b bf_shift makes a Bloom filter: a per-shard filter of at
+    least one 512-bit block and at most 2^64 bits, else yak_bf_init
+    returns NULL and counting runs ungated (bbf.c:9, htab.c:23-27)."""
+    return 9 <= bf_shift - pre <= 64 - 9
+
+
+def check_exact_gate(bf_shift, bf_n_hash, lanes, rank_bound=None,
+                     shard_shift=0):
+    """Refuse a gated fold of `lanes` lanes that the serial-exact gate
+    (-X) could not serve (its packed sort key would not fit 64 bits),
+    before it runs, as yak_tpu/table.py:269-285 does: the exact-dump
+    cross-check would only find it after a full count.  The rank bound
+    is the fold's own where it carries ranks (a mesh's: a group's lanes,
+    `parallel.mesh.count_file_mesh`, its filter slices shard_shift bits
+    narrower), else 2 * lanes + 4096, yak_tpu's, so the same -b/-H/-K
+    refuse."""
+    if not bloom.exact_gate_fits(bf_shift, bf_n_hash,
+                                 rank_bound or 2 * lanes + 4096,
+                                 shard_shift):
+        raise ValueError(
+            f"-X (byte-exact dump) cannot engage the serial-exact "
+            f"Bloom gate for -b{bf_shift} -H{bf_n_hash} "
+            f"with {lanes} lanes/fold: the packed (position, rank) "
+            f"sort key exceeds 64 bits.  Use a smaller -b/-K or "
+            f"drop -X (the default dump has identical content).")
+
+
 class KmerTable:
     """Deferred-merge note: code chunks accumulate on the host and fold
     into the sorted table in groups, so duplicates across a whole group
@@ -83,11 +116,13 @@ class KmerTable:
     versions.  `phase_hook`, when set, is called with the name of each
     fold phase as it is queued ("start", "h2d", "extract", "sort",
     "gate" on a gated fold, "merge", "finalize"), for per-phase
-    timing.  `bf_exact`: gate through the serial-exact gate (-X)."""
+    timing.  `bf_exact`: gate through the serial-exact gate (-X).
+    `shard_shift`: the table is a shard of a mesh of 2^shard_shift
+    shards, and its filter that shard's slice."""
 
     def __init__(self, k, pre=10, cap_log2=16, flush_lanes=None,
                  cap_hinted=None, *, device, bf_shift=0, bf_n_hash=4,
-                 bf_exact=False):
+                 bf_exact=False, shard_shift=0):
         if pre < 10:
             raise ValueError("pre must be at least YAK_COUNTER_BITS (10)")
         if not 1 <= k <= MAX_K:
@@ -117,11 +152,9 @@ class KmerTable:
         self.bf_shift = bf_shift
         self.bf_n_hash = bf_n_hash
         self.bf_exact = bf_exact
-        # a per-shard filter of at least one 512-bit block and at most
-        # 2^64 bits, else yak_bf_init returns NULL and counting runs
-        # ungated (bbf.c:9, htab.c:23-27)
-        if bf_shift > pre and 9 <= bf_shift - pre <= 64 - 9:
-            self.bf = bloom.make_bloom(bf_shift, self.device)
+        self.shard_shift = shard_shift
+        if makes_filter(bf_shift, pre):     # a mesh shard holds its slice
+            self.bf = bloom.make_bloom(bf_shift - shard_shift, self.device)
 
     @property
     def cap(self):
@@ -220,7 +253,8 @@ class KmerTable:
         self._queue_fold(carg, g * max(L - self.k + 1, 1),
                          self.bf is not None and self._pend_create)
 
-    def fold_hashes(self, h, valid, create_new=True):
+    def fold_hashes(self, h, valid, create_new=True, rank=None,
+                    rank_bound=None):
         """Fold one batch of raw hashes (int64 [B] on the table's device;
         k >= 32 the u64 bit patterns) with its validity (bool [B]) through
         the kernel engine, as a fold of code chunks goes: the previous
@@ -228,19 +262,25 @@ class KmerTable:
         `countstep.psort_enabled` names, the batch kept for an overflow
         replay.  create_new=False increments existing keys only
         (htab.c:71-75).  This is how a shard of a `parallel.mesh.MeshTable`
-        folds the hashes routed to it (the per-chip sort and merge-reduce
-        of yak_tpu's mesh count step).  The fold is ungated: a table with
-        a Bloom filter refuses a creating fold."""
-        if self.bf is not None and create_new:
-            raise NotImplementedError(
-                "fold_hashes through the Bloom gate is not yet ported: "
-                "ROADMAP.md Queue 1 step 6, 'the literal -b two-pass on a "
-                "mesh'")
+        folds the hashes routed to it (the per-chip sort, Bloom gate and
+        merge-reduce of yak_tpu's mesh count step,
+        yak_tpu/parallel/mesh.py:338-426).
+
+        Through a live filter a creating fold is gated, the batch as one
+        gating batch (the cheap gate sees the filter as it was before
+        it).  With bf_exact, `rank` (int [B], below rank_bound) gives
+        each lane's serial position, as the serial-exact gate needs when
+        the batch is not in serial order; without it the lane is the
+        rank."""
         if self._pend_codes or self._pend or self._pend_create != create_new:
             self.flush()
             self._pend_create = create_new
         self._mark("start")
-        self._queue_fold(("hashes", (h, valid)), h.numel(), False)
+        carg = ("hashes", (h, valid))
+        if rank is not None:
+            carg += ((rank, rank_bound),)
+        self._queue_fold(carg, h.numel(),
+                         self.bf is not None and create_new)
 
     def _queue_fold(self, carg, lanes, gated):
         """Queue one fold of `carg` (`countstep.extract`'s argument) over
@@ -248,7 +288,9 @@ class KmerTable:
         overflow replay needs."""
         self._check_last_step()  # one step late: previous fold settled
         if gated and self.bf_exact:
-            self._warn_exact_gate(lanes)
+            self._warn_exact_gate(lanes, carg[2][1] if len(carg) == 3
+                                  and carg[0] == "hashes" else None,
+                                  self.shard_shift)
             env = os.environ
             if (env.get("YAK_TPU_PSORT") == "1"
                     or env.get("YAK_TPU_ENGINE") == "psort"):
@@ -277,7 +319,7 @@ class KmerTable:
         ungated)."""
         keys, cnt, size = state
         gate = ((self.bf, self.pre, self.bf_shift, self.bf_n_hash,
-                 self.bf_exact) if gated else None)
+                 self.bf_exact, self.shard_shift) if gated else None)
         (self.keys, self.cnt, self.size, _n_new, ovf, bf,
          undo) = countstep.count_step(carg, self.k, keys, cnt, size,
                                       self._pend_create, gate=gate,
@@ -286,20 +328,10 @@ class KmerTable:
             self.bf = bf
         return ovf, undo
 
-    def _warn_exact_gate(self, lanes):
-        """Refuse a gated fold of `lanes` lanes that the serial-exact gate
-        (-X) could not serve (its packed sort key would not fit 64 bits),
-        before it runs, as yak_tpu/table.py:269-285 does: the exact-dump
-        cross-check would only find it after a full count.  The bound,
-        2 * lanes + 4096, is yak_tpu's, so the same -b/-H/-K refuse."""
-        if not bloom.exact_gate_fits(self.bf_shift, self.bf_n_hash,
-                                     2 * lanes + 4096):
-            raise ValueError(
-                f"-X (byte-exact dump) cannot engage the serial-exact "
-                f"Bloom gate for -b{self.bf_shift} -H{self.bf_n_hash} "
-                f"with {lanes} lanes/fold: the packed (position, rank) "
-                f"sort key exceeds 64 bits.  Use a smaller -b/-K or "
-                f"drop -X (the default dump has identical content).")
+    def _warn_exact_gate(self, lanes, rank_bound=None, shard_shift=0):
+        """check_exact_gate for this table's -b and -H."""
+        check_exact_gate(self.bf_shift, self.bf_n_hash, lanes, rank_bound,
+                         shard_shift)
 
     def _check_last_step(self):
         """Settle the previous fold: on overflow, double the preserved
@@ -341,10 +373,11 @@ class KmerTable:
             gate = (self.bf, self.pre, self.bf_shift, self.bf_n_hash)
             if self.bf_exact:
                 add, self.bf, _undo = countstep.bloom_gate_exact_post(
-                    h, perm, *gate, wide=self.wide)
+                    h, perm, *gate, wide=self.wide,
+                    shard_shift=self.shard_shift)
             else:
                 add, self.bf, _undo = countstep.bloom_gate_post(
-                    h, *gate, wide=self.wide)
+                    h, *gate, wide=self.wide, shard_shift=self.shard_shift)
             valid = add > 0
         else:
             h = encode_wide(h) if self.wide else h

@@ -28,10 +28,12 @@ class Progress:
 
 
 def to_host_async(tensors):
-    """Start copies of `tensors` to pinned host memory on the current
-    stream; returns the host tensors and an event that is done when they
-    are (None for CPU tensors, returned as they are)."""
-    if tensors[0].device.type == "cpu":
+    """Start copies of `tensors` (on one device) to pinned host memory on
+    their device's current stream; returns the host tensors and an event
+    that is done when they are (None for CPU tensors, returned as they
+    are)."""
+    dev = tensors[0].device
+    if dev.type == "cpu":
         return tuple(tensors) + (None,)
     host = []
     for t in tensors:
@@ -39,7 +41,7 @@ def to_host_async(tensors):
         h.copy_(t, non_blocking=True)
         host.append(h)
     ready = torch.cuda.Event()
-    ready.record()
+    ready.record(torch.cuda.current_stream(dev))
     return tuple(host) + (ready,)
 
 
