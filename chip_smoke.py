@@ -230,7 +230,19 @@ Phases, in order; any failure exits non-zero:
      seeds 7 and 8 (TB_DIGEST), trioeval of seeds 17 and 18 (TE_DIGEST)
      and sexchr of phase 26's inputs (ALGEBRA_DIGEST), each chunk's post
      on its shard's device; every captured JOIN and compaction call held
-     against its plain version.
+     against its plain version;
+ 35. a count over two processes, two shards of the card each
+     (parallel/multihost.py): two copies of this script in worker mode
+     (`--multihost-worker`), joined over gloo at a free loopback port,
+     each driving [cuda:0] * 2 of a global mesh of four shards; each
+     counts phase 10's FASTA at chunk 2^23 (after a warm-up count) at
+     k=31, the -b24 literal two-pass over the hard link and k=31 under
+     psort through count_file_multihost, with phase 4's and phase 10's
+     gates, its dump md5-equal to the one-device dump, every captured
+     merge, compaction and sort call held against its plain version;
+     it logs its walls, the device and host spans per group and the
+     exchange's host time per group.  A worker that fails or runs past
+     MH_TIMEOUT_S fails the phase, the other killed.
 
 Every path that reads a sequence file takes the native reader, as
 `yak_tpu` does; phases 3, 4 and 11 fold chunks packed by this script.
@@ -263,7 +275,8 @@ and `sort_planes32_mesh`, whose order restores are the JOIN's stores and
 the scatter by slot), timed at a shard's call, and of phases 33-34,
 whose weighted merges and compactions have their own entries
 (`merge_reduce_weighted_mesh`, `compact_mesh`), in place of yak_tpu's
-shard_mapped count step with its bloom_cfg and lookup steps) and the
+shard_mapped count step with its bloom_cfg and lookup steps; phase
+35's workers' launches, summed, are their `multihost` path) and the
 contract line
 {"ok": true, "device": {...}}.  Imports no JAX.
 """
@@ -338,7 +351,8 @@ MESH_SHARDS = 4                      # phases 29-30: [cuda:0] * 4
 MESH_CAP_LOG2 = 21                   # phase 29's lanes a shard (2^23 / 4)
 MESH_REPLAY_CAP_LOG2 = 19            # phase 29's replay run
 MESH_CHUNK = 1 << 23                 # phase 29's chunk (phase 10's)
-ONE_DEVICE = {}      # (wall s, device busy ms) of phases 4 and 7, for 29-30
+ONE_DEVICE = {}      # (wall s, device busy ms) of phases 4, 7 and 29
+ONE_DUMP_MD5 = {}    # the one-device k31 and -b24 dumps' md5s, for 35
 
 
 def log(msg):
@@ -2745,6 +2759,7 @@ def mesh_count_paths(dev, card, fa, count_items, chunks, results, by_path):
         run_count(chunks, dev, k=K33).dump(one[K33])
     for k in one:
         log(f"  one-device k={k} dump md5 {file_md5(one[k])}")
+    ONE_DUMP_MD5["k31"] = file_md5(one[K])
 
     def count(k, cap_log2, marks):
         opt = CountOpts(k=k, chunk_size=MESH_CHUNK, device=str(dev))
@@ -2807,6 +2822,7 @@ def mesh_count_paths(dev, card, fa, count_items, chunks, results, by_path):
         busy = split_groups(marks.marks, wall, card, name)
         if not psort and k == K:
             beside(name, wall, busy, "count", card)
+            ONE_DEVICE[name] = (wall, busy)     # beside phase 35's
         mesh_entry = MESH_ENTRIES[merge_entry]
         err[mesh_entry] = max(err.get(mesh_entry, 0), check_merges(ms, name))
         log(f"  {name}: kernel == plain on {len(ms)} captured per-shard "
@@ -3213,6 +3229,7 @@ def mesh_bloom_paths(dev, card, d, paths, results, by_path):
                            for n in ("one", "mesh"))
     with contextlib.redirect_stderr(io.StringIO()):
         run_bloom(files, 24, dev).dump(one_path)
+    ONE_DUMP_MD5["b24"] = file_md5(one_path)
     name = "mesh b24 literal"
     opt = CountOpts(k=K, bf_shift=24, chunk_size=MESH_CHUNK, device=str(dev))
     marks = _GroupMarks()
@@ -3406,6 +3423,208 @@ def mesh_slice_phases(dev, card, count_items, reads, ch_texts, results,
             os.unlink(os.path.join(d, name))
         os.rmdir(d)
 
+# -- phase 35: counting over two processes, two shards of the card each ----
+
+MH_PROCS, MH_SHARDS = 2, 2     # a global mesh of D = 4 shards, as phase 29's
+MH_TIMEOUT_S = 240             # a worker still running then fails the phase
+MH_RUNS = (("multihost count", 0, False),
+           ("multihost b24 literal", 24, False),
+           ("multihost psort count", 0, True))
+MH_ENTRIES = ("merge_reduce_mesh", "merge_reduce_weighted_mesh",
+              "compact_mesh", "sort_i64_mesh")
+
+
+def _host_timed(fn, name, out):
+    """fn, appending (name, its host ms) to `out` at each call."""
+    def timed(*args, **kw):
+        t0 = time.perf_counter()
+        res = fn(*args, **kw)
+        out.append((name, (time.perf_counter() - t0) * 1e3))
+        return res
+    return timed
+
+
+def mh_worker(coord, rank, fa, link, md5s):
+    """One process of phase 35 (`chip_smoke.py --multihost-worker ...`):
+    MH_RUNS over the global mesh of [cuda:0] * MH_SHARDS in each of
+    MH_PROCS processes joined over gloo, each run's gates, its dump
+    md5-equal to the one-device dump (`md5s`), every captured merge,
+    compaction and sort call held against its plain version, the device
+    and host spans per group and the exchange's host time per group.
+    Prints its results as one `MH_RESULT {json}` line."""
+    sys.path.insert(0, ROOT)
+    from yak_tpu_torch import YAK_MAX_COUNT
+    from yak_tpu_torch.models.count import CountOpts
+    from yak_tpu_torch.ops import cuda_build
+    from yak_tpu_torch.parallel import multihost as mh
+
+    built = cuda_build.load_all(["merge_reduce", "compact", "sort"])
+    if any(secs for _lib, secs in built.values()):
+        raise AssertionError("a worker built a kernel phase 2 had built")
+    dev = torch.device("cuda")
+    mh.init_multihost(coord, MH_PROCS, rank, backend="gloo")
+    mesh = mh.global_mesh([dev] * MH_SHARDS)
+    card = card_line()
+    xch = []            # (exchange step, host ms) of each call
+    for attr in ("gather_counts", "all_to_all"):
+        setattr(mh._HostSlice, attr,
+                _host_timed(getattr(mh._HostSlice, attr), attr, xch))
+    mh.dist.all_to_all_single = _host_timed(mh.dist.all_to_all_single,
+                                            "wire", xch)
+    results = {e: {"max_abs_err": 0} for e in MH_ENTRIES}
+    report = {"counts": {}, "runs": {}}
+    t0 = time.perf_counter()
+    mh.count_file_multihost(fa, CountOpts(k=K, chunk_size=MESH_CHUNK,
+                                          device=str(dev)), mesh,
+                            cap_log2=MESH_CAP_LOG2)
+    torch.cuda.synchronize()
+    log(f"  warm-up count (this process's first): "
+        f"{time.perf_counter() - t0:.4f} s")
+    real = mh.count_file_mesh
+    for name, bf_shift, psort in MH_RUNS:
+        marks = _GroupMarks()
+        mh.count_file_mesh = lambda *a, **kw: real(*a, hook=marks, **kw)
+        del xch[:]
+        opt = CountOpts(k=K, bf_shift=bf_shift, chunk_size=MESH_CHUNK,
+                        device=str(dev))
+        try:
+            with psort_engine() if psort else contextlib.nullcontext():
+                reset_counts()
+                with captured("merge", "merge_reduce") as ms, \
+                        captured("compact", "compact") as cs, \
+                        captured("sort", "sort") as ss:
+                    t0 = time.perf_counter()
+                    mt = mh.count_file_multihost(fa, opt, mesh,
+                                                 cap_log2=MESH_CAP_LOG2)
+                    if bf_shift:
+                        mt.destroy_bf()
+                        mt.clear_counts()
+                        mh.count_file_multihost(link, opt, mesh, table=mt)
+                        mt.shrink(2, YAK_MAX_COUNT)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                counts = read_counts()
+        finally:
+            mh.count_file_mesh = real
+        report["counts"][name] = counts
+        check_gates(mt, f"{name}: wall {wall:.4f} s", *(
+            (BLOOM_DISTINCT, BLOOM_HIST) if bf_shift
+            else (TOTAL_GATE, HIST_GATE)))
+        check_launched(counts, ("merge_reduce_weighted", "merge_reduce",
+                                "compact") if bf_shift else
+                       ("merge_reduce",) + (("sort_i64",) if psort else ()),
+                       name)
+        out = os.path.join(os.path.dirname(fa), f"mh{rank}.yak")
+        with contextlib.redirect_stderr(io.StringIO()):
+            mt.dump(out)
+        want = md5s["b24" if bf_shift else "k31"]
+        if file_md5(out) != want:
+            raise AssertionError(f"{name}: dump md5 {file_md5(out)} != the "
+                                 f"one-device dump's {want}")
+        log(f"  {name}: dump md5 {want} = the one-device dump's; local "
+            f"shard sizes {[s.tot for s in mt.shards]}, capacities "
+            f"{[s.cap for s in mt.shards]}")
+        del mt
+        busy = split_groups(marks.marks, wall, card, name)
+        per = {n: [ms_ for n_, ms_ in xch if n_ == n]
+               for n in ("gather_counts", "all_to_all", "wire")}
+        log(f"  {name}: exchange host ms per group: counts all_gather "
+            + ", ".join(f"{x:.4f}" for x in per["gather_counts"])
+            + "; hashes all_to_all, staging included "
+            + ", ".join(f"{x:.4f}" for x in per["all_to_all"])
+            + ", of it the collective "
+            + ", ".join(f"{x:.4f}" for x in per["wire"]))
+        report["runs"][name] = {"wall_s": wall, "busy_ms": busy, **per}
+        mesh_kernel_checks(ms, cs, name, results)
+        if psort:
+            check_sorts(ss, name)
+        del ms, cs, ss
+    report["err"] = {e: r["max_abs_err"] for e, r in results.items()}
+    torch.distributed.destroy_process_group()
+    log("MH_RESULT " + json.dumps(report))
+    return 0
+
+
+def multihost_phase(card, reads, results, by_path):
+    """Phase 35: MH_PROCS copies of this script in worker mode
+    (`mh_worker`), joined over gloo at a free loopback port; every worker
+    must pass, and one that fails or runs past MH_TIMEOUT_S fails the
+    phase, the others killed.  Their launches, summed, are the
+    `multihost` path; their kernel checks' errors go into the mesh
+    entries."""
+    import socket
+
+    d = tempfile.mkdtemp(prefix="yak_tpu_torch_mh_")
+    procs, logs = [], []
+    try:
+        t0 = time.perf_counter()
+        files = bloom_files(d, reads)
+        log(f"  inputs written in {time.perf_counter() - t0:.3f} s")
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            coord = f"127.0.0.1:{sock.getsockname()[1]}"
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        for rank in range(MH_PROCS):
+            logs.append(open(os.path.join(d, f"worker{rank}.log"), "w+"))
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__),
+                 "--multihost-worker", coord, str(rank), *files,
+                 json.dumps(ONE_DUMP_MD5)],
+                stdout=logs[-1], stderr=subprocess.STDOUT, cwd=ROOT))
+        deadline = t0 + MH_TIMEOUT_S
+        while (any(p.poll() is None for p in procs)
+               and not any(p.returncode for p in procs)
+               and time.perf_counter() < deadline):
+            time.sleep(0.1)
+        wall = time.perf_counter() - t0
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        reports = []
+        for rank, (p, f) in enumerate(zip(procs, logs)):
+            f.seek(0)
+            text = f.read()
+            for line in text.splitlines():
+                if line.startswith("MH_RESULT "):
+                    reports.append(json.loads(line[len("MH_RESULT "):]))
+                else:
+                    log(f"  [worker {rank}] {line}")
+            if p.returncode != 0:
+                raise AssertionError(
+                    f"phase 35: worker {rank} exited {p.returncode} after "
+                    f"{wall:.1f} s (timeout {MH_TIMEOUT_S} s)")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+        for name in os.listdir(d):
+            os.unlink(os.path.join(d, name))
+        os.rmdir(d)
+    total = {}
+    for rep in reports:
+        for counts in rep["counts"].values():
+            for n, c in counts.items():
+                total[n] = total.get(n, 0) + c
+        for e, err in rep["err"].items():
+            results[e]["max_abs_err"] = max(results[e]["max_abs_err"], err)
+    by_path["multihost"] = mesh_counts(total)
+    log(f"  {MH_PROCS} workers of {MH_SHARDS} shards each passed in "
+        f"{wall:.3f} s wall (their start included) [{card}]")
+    w1, b1 = ONE_DEVICE["mesh count"]
+    for rank, rep in enumerate(reports):
+        run = rep["runs"]["multihost count"]
+        log(f"  worker {rank}: k31 wall {run['wall_s']:.4f} s, device busy "
+            f"{run['busy_ms']:.4f} ms, exchange (all_to_all) per group "
+            + ", ".join(f"{x:.4f}" for x in run["all_to_all"])
+            + f" ms; phase 29 on one process: wall {w1:.4f} s, busy "
+            f"{b1:.4f} ms [{card}]")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on the card",
@@ -3547,6 +3766,9 @@ def main():
     results["compact_mesh"] = {"max_abs_err": 0}
     mesh_slice_phases(dev, card, count_items, reads, ch_texts, results,
                       by_path)
+    phase(f"35. count over {MH_PROCS} processes, {MH_SHARDS} shards of the "
+          f"card each")
+    multihost_phase(card, reads, results, by_path)
     torch.cuda.synchronize()
 
     print(json.dumps({"kernels": [
@@ -3562,4 +3784,7 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--multihost-worker"]:
+        coord, rank, fa, link, md5s = sys.argv[2:7]
+        sys.exit(mh_worker(coord, int(rank), fa, link, json.loads(md5s)))
     sys.exit(main())

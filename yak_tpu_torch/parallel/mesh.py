@@ -2,8 +2,9 @@
 mesh of devices, shard d owning the hashes h with h & (D-1) == d.
 
 Port of `yak_tpu/parallel/mesh.py` as one process that drives every
-device, as `yak_tpu`'s mesh is one `shard_map` over a 1-D `Mesh` (its
-multi-process layer, `multihost.py`, is ROADMAP.md Queue 1 step 6).  A
+device, as `yak_tpu`'s mesh is one `shard_map` over a 1-D `Mesh`; a
+mesh over several processes is `multihost.py`'s, whose MeshTable holds
+this process's shards of it and whose routing is two collectives.  A
 mesh is a tuple of `torch.device`s, D a power of two.  A device may
 repeat: a mesh of D shards then runs on one card, or on the CPU, as
 `yak_tpu`'s tests run theirs on 8 virtual CPU devices.  The owner of a
@@ -104,12 +105,19 @@ class MeshTable:
     `mesh[d]`, holds the hashes h with h & (D-1) == d, and, where the
     options make a Bloom filter (bf_shift, bf_n_hash; bf_exact for -X),
     its slice of it.  `cap` is the largest shard's capacity (shards grow
-    on their own)."""
+    on their own).
+
+    On a global mesh (`host`, a `multihost._HostSlice`), `mesh` and
+    `shards` are this process's, global shards `host.slots`, of D =
+    `n_dev`; `items`, `hist`, `dump`, `tot` and `cap` then gather or
+    reduce over the processes, so every process must call them."""
 
     def __init__(self, mesh, k, pre=10, cap_log2=16, bf_shift=0,
-                 bf_n_hash=4, bf_exact=False):
+                 bf_n_hash=4, bf_exact=False, host=None):
         self.mesh = tuple(mesh)
-        self.n_dev = len(self.mesh)
+        self.host = host
+        self.n_dev = len(self.mesh) if host is None else host.n_dev
+        self.slot0 = 0 if host is None else host.slots.start
         nlog = self.n_dev.bit_length() - 1
         if pre < nlog:
             raise ValueError("pre must be >= log2(n_devices)")
@@ -132,13 +140,18 @@ class MeshTable:
             shard._set_pairs(hashes[sel], counts[sel])
         return t
 
+    def _reduce(self, value, op="sum"):
+        """This process's `value` summed ("sum") or its largest ("max")
+        over the processes of a global mesh."""
+        return value if self.host is None else self.host.reduce(value, op)
+
     @property
     def cap(self):
-        return max(s.cap for s in self.shards)
+        return self._reduce(max(s.cap for s in self.shards), "max")
 
     @property
     def tot(self):
-        return sum(s.tot for s in self.shards)
+        return self._reduce(sum(s.tot for s in self.shards))
 
     def destroy_bf(self):
         for s in self.shards:
@@ -158,17 +171,24 @@ class MeshTable:
 
     def items(self):
         """Host (hash u64[N], count i32[N]) over all shards, shard by
-        shard."""
+        shard; on a global mesh every process's, gathered on each (a
+        collective)."""
         hs, cs = zip(*(s.items() for s in self.shards))
-        return np.concatenate(hs), np.concatenate(cs)
+        h, c = np.concatenate(hs), np.concatenate(cs)
+        if self.host is None:
+            return h, c
+        return (self.host.gather(h.view(np.int64)).view(np.uint64),
+                self.host.gather(c))
 
     def hist(self):
-        """The 1024-bin count histogram, the sum of the shards'."""
-        return sum(s.hist() for s in self.shards)
+        """The 1024-bin count histogram, the sum of the shards' (on a
+        global mesh, of every process's: a collective)."""
+        return self._reduce(sum(s.hist() for s in self.shards))
 
     def dump(self, path):
         """The shards' items through the one-device writer: the bytes of
-        a one-device dump of the same table."""
+        a one-device dump of the same table.  On a global mesh a
+        collective, and every process writes `path`."""
         h_np, c_np = self.items()
         yakfmt.dump_yak(path, self.k, self.pre, h_np, c_np)
         print(f"[M::yak_tpu_torch] dumped the hash table to file '{path}'",
@@ -176,6 +196,22 @@ class MeshTable:
 
 
 # -- routing -------------------------------------------------------------
+
+def _owners(hv, n_dev, dev0):
+    """Per source (h int64 [M_s], valid bool [M_s]) of hv: its lanes in
+    (owner, lane) order, a stable sort of the owners h & (D-1) (D on the
+    invalid lanes), and its number of hashes for each owner, int64 [D]
+    on dev0."""
+    bounds = torch.arange(n_dev + 1, dtype=torch.int32)
+    perms, rows = [], []
+    for h, valid in hv:
+        owner = torch.where(valid, h & (n_dev - 1), n_dev).to(torch.int32)
+        sorted_owner, perm = torch.sort(owner, stable=True)
+        perms.append(perm)
+        edges = torch.searchsorted(sorted_owner, bounds.to(h.device))
+        rows.append(torch.diff(edges).to(dev0))
+    return perms, rows
+
 
 def _route(hv, mesh):
     """Send each valid hash to its owner shard.  hv holds, for each
@@ -185,16 +221,10 @@ def _route(hv, mesh):
     by source and each source's in lane order; meta = (perm, counts),
     per source the lanes in (owner, lane) order and the host [S, D]
     numpy matrix of hashes sent from s to d, which `_route_back` uses.
-    The counts are read once, as one [S, D] tensor."""
+    The counts are read once, as one [S, D] tensor.  A table over
+    several processes routes by `multihost._HostSlice.route` instead."""
     n_dev = len(mesh)
-    bounds = torch.arange(n_dev + 1, dtype=torch.int32)
-    perms, rows = [], []
-    for h, valid in hv:
-        owner = torch.where(valid, h & (n_dev - 1), n_dev).to(torch.int32)
-        sorted_owner, perm = torch.sort(owner, stable=True)
-        perms.append(perm)
-        edges = torch.searchsorted(sorted_owner, bounds.to(h.device))
-        rows.append(torch.diff(edges).to(mesh[0]))
+    perms, rows = _owners(hv, n_dev, mesh[0])
     counts = torch.stack(rows).cpu().numpy()
     recv = [[] for _ in range(n_dev)]
     for (h, _valid), perm, row in zip(hv, perms, counts):
@@ -269,7 +299,8 @@ def _extract_group(group, mesh, k, mark):
 
 # -- counting --------------------------------------------------------------
 
-def count_file_mesh(fn, opt, mesh, cap_log2=None, table=None, hook=None):
+def count_file_mesh(fn, opt, mesh, cap_log2=None, table=None, hook=None,
+                    create_new=None):
     """Count one file into a MeshTable: each group of D chunks extracted
     a chunk a shard, routed, and folded by each shard's `fold_hashes`.
 
@@ -277,28 +308,34 @@ def count_file_mesh(fn, opt, mesh, cap_log2=None, table=None, hook=None):
     opt.cap_log2) lanes a shard, with the Bloom filter of opt.bf_shift,
     opt.bf_n_hash and opt.exact dealt to the shards, create mode (pass 1
     of -b: each shard's fold of a group gated); otherwise increment the
-    table's existing keys only (pass 2 of -b, recount, htab.c:71-75).
+    table's existing keys only (pass 2 of -b, recount, htab.c:71-75);
+    `create_new` overrides either mode.  A table on a global mesh
+    (`multihost.count_file_multihost`) gets chunk i of a group on its
+    global shard i: this process extracts its own shards' chunks only.
     With -X, a count whose serial rank key would not fit is refused
     before it starts (ValueError).  `hook`, when given, is called with
     "start", "h2d", "extract", "route" and "fold" as each group's phases
     are queued."""
-    create = table is None
+    create = table is None if create_new is None else create_new
     chunk = _device_chunk(opt)
-    group_lanes = len(mesh) * (chunk - opt.k + 1)
-    exact = create and opt.exact and makes_filter(opt.bf_shift, opt.pre)
+    n_dev = len(mesh) if table is None else table.n_dev
+    group_lanes = n_dev * (chunk - opt.k + 1)
+    exact = (table is None and create and opt.exact
+             and makes_filter(opt.bf_shift, opt.pre))
     if exact:               # before the filter slices are made
         check_exact_gate(opt.bf_shift, opt.bf_n_hash, group_lanes,
-                         group_lanes, len(mesh).bit_length() - 1)
-    if create:
+                         group_lanes, n_dev.bit_length() - 1)
+    if table is None:
         table = MeshTable(mesh, opt.k, opt.pre, cap_log2 or opt.cap_log2,
                           bf_shift=opt.bf_shift, bf_n_hash=opt.bf_n_hash,
                           bf_exact=opt.exact)
     mark = hook or (lambda _name: None)
+    route = _route if table.host is None else table.host.route
     for group in _groups(fn, chunk, opt.k, table.n_dev, min_len=opt.k):
         mark("start")
-        hv = _extract_group(group, table.mesh, opt.k, mark)
+        hv = _extract_group(group[table.slot0:], table.mesh, opt.k, mark)
         mark("extract")
-        recv, meta = _route(hv, table.mesh)
+        recv, meta = route(hv, table.mesh)
         ranks = (_serial_ranks(meta, table.mesh, group_lanes // table.n_dev)
                  if exact else [None] * table.n_dev)
         mark("route")
@@ -354,6 +391,10 @@ def mesh_routed_groups(fn, mtable, chunk, psort=None, hook=None):
     default `countstep.psort_enabled()`).  `hook`, when given, is called
     with "start", "h2d", "extract", "route", "lookup" and "back" as each
     group's phases are queued."""
+    if mtable.host is not None:
+        raise NotImplementedError("lookups on a table counted over several "
+                                  "processes (yak_tpu's multihost layer "
+                                  "only counts)")
     k = mtable.k
     if psort is None:
         psort = countstep.psort_enabled()
