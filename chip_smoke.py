@@ -242,7 +242,27 @@ Phases, in order; any failure exits non-zero:
      merge, compaction and sort call held against its plain version;
      it logs its walls, the device and host spans per group and the
      exchange's host time per group.  A worker that fails or runs past
-     MH_TIMEOUT_S fails the phase, the other killed.
+     MH_TIMEOUT_S fails the phase, the other killed;
+ 36. the other engines and knobs at real size, each variable set in
+     this process for its runs and unset after, with the launch counts
+     set to 0 just before each run and read just after: phase 4's count
+     under YAK_TPU_ENGINE=compact (the merged stream closed up by the
+     compaction kernel) and =xla (the sort-merge in plain torch, no
+     kernel), compact again from 2^21 lanes (the replay), phase 11's
+     k=33 under YAK_TPU_WIDE=0, phase 10's -b24 literal under
+     ENGINE=compact, =xla and YAK_TPU_BLOOM_SENTINEL=0, each with its
+     gates; `count -X -k31 -b24` (phase 32's) under ENGINE=compact
+     (EXACT_DIGEST); qv seeds 101 and 102 under YAK_TPU_JOIN=0 (the
+     sorted join) and YAK_TPU_QV_SEG=1 (the seg-payload JOIN post);
+     chkerr of the reads under YAK_TPU_MARK_COMPACT=0 and JOIN=0 (phase
+     8's text); triobin seed 7 under JOIN=0 (TB_DIGEST), trioeval seed
+     17 under MARK_COMPACT=0 (TE_DIGEST); subtract, isec, inspect and
+     sexchr under JOIN=0 (ALGEBRA_DIGEST); count k31 and qv 101 under
+     YAK_TPU_PALLAS=0, which must launch no kernel.  Every compaction
+     call of the compact engine and every JOIN call of QV_SEG is held
+     bit for bit against its plain version, and one of each is timed;
+     each run logs its device ms per fold or chunk (CUDA events) and
+     its wall beside the default engine's of the same run.
 
 Every path that reads a sequence file takes the native reader, as
 `yak_tpu` does; phases 3, 4 and 11 fold chunks packed by this script.
@@ -264,10 +284,13 @@ under `passes`; the JOIN's gives under `identity_qidx_device_ms` its
 device time on the same call with qidx the identity, whose stores
 coalesce; the compaction's top-level times are chkerr's call, and
 `shapes` gives the times, bound and library time of each timed shape:
-chkerr, the -b24 sentinel post (phase 13), the dense input, and the
-trio paths' calls (phase 17: `triobin_diff`, `trioeval`); the JOIN's
+chkerr, the -b24 sentinel post (phase 13), the dense input, the
+trio paths' calls (phase 17: `triobin_diff`, `trioeval`) and the
+compact engine's third fold (phase 36: `compact_engine_fold`, whose
+bound reads every lane of the three planes); the JOIN's
 and the sorts' `shapes` give their trio calls likewise, the JOIN's also
-subtract's call (phase 24), and the count mode's a recount fold and a
+subtract's call (phase 24) and QV_SEG's (phase 36: `qv_seg`, the
+identity as its store lanes), and the count mode's a recount fold and a
 cntasm presence vote; the `*_mesh` entries are the per-shard launches
 of phases 29-30, which replace yak_tpu's shard_mapped wrappers
 (`merge_reduce_presorted_mesh`, `sort_planes_mesh` with its pass chain,
@@ -281,12 +304,14 @@ contract line
 {"ok": true, "device": {...}}.  Imports no JAX.
 """
 
+import atexit
 import contextlib
 import hashlib
 import io
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -351,8 +376,21 @@ MESH_SHARDS = 4                      # phases 29-30: [cuda:0] * 4
 MESH_CAP_LOG2 = 21                   # phase 29's lanes a shard (2^23 / 4)
 MESH_REPLAY_CAP_LOG2 = 19            # phase 29's replay run
 MESH_CHUNK = 1 << 23                 # phase 29's chunk (phase 10's)
-ONE_DEVICE = {}      # (wall s, device busy ms) of phases 4, 7 and 29
+ONE_DEVICE = {}      # (wall s, device busy ms) of phases 4, 7, 10, 11, 29
+# the engine and lookup knobs phase 36 sets (psort: phases 16, 22, 27)
+KNOB_VARS = ("YAK_TPU_PSORT", "YAK_TPU_ENGINE", "YAK_TPU_WIDE",
+             "YAK_TPU_JOIN", "YAK_TPU_MARK_COMPACT", "YAK_TPU_BLOOM_SENTINEL",
+             "YAK_TPU_QV_SEG", "YAK_TPU_PALLAS")
 ONE_DUMP_MD5 = {}    # the one-device k31 and -b24 dumps' md5s, for 35
+EXACT_WALLS = {}     # phase 32's (wall s, dump s) a config, for 36
+
+
+def kept_dir(name):
+    """A temporary directory that lives until the script exits (its
+    inputs serve a later phase too)."""
+    d = tempfile.mkdtemp(prefix=f"yak_tpu_torch_{name}_")
+    atexit.register(shutil.rmtree, d, True)
+    return d
 
 
 def log(msg):
@@ -1057,6 +1095,15 @@ class _Timeline:
         self.mark("post")
         return out
 
+    def qv_lookup_seg(self, *args, **kw):
+        self.mark("start")
+        return self.countstep.qv_lookup_seg(*args, hook=self.mark, **kw)
+
+    def qv_join_post_seg(self, *args, **kw):
+        out = self.countstep.qv_join_post_seg(*args, **kw)
+        self.mark("post")
+        return out
+
 
 def qv_path(table, paths, card):
     """Phase 7; returns the JOIN launches of the first timed run."""
@@ -1099,10 +1146,12 @@ def qv_run(table, paths, seed, card, timeline=True):
     if int(cnt.sum()) != QV_SUM or int(cnt[0]) != 0 or dg != digest:
         raise AssertionError(f"qv seed {seed}: gates failed (want sum "
                              f"{QV_SUM}, cnt[0] 0, digest {digest})")
+    busy = None
     if timeline:
         busy, _by_phase = split_chunks(tl.marks, card)
-        if os.environ.get("YAK_TPU_PSORT") != "1":
+        if not any(v in os.environ for v in KNOB_VARS):
             ONE_DEVICE[f"qv {seed}"] = (wall, busy)
+    return wall, busy
 
 
 def split_chunks(marks, card):
@@ -1375,7 +1424,8 @@ def bloom_paths(dev, card, d, reads):
             f"extraction units/s (bench.py's 96,000,000 a pass pair), peak "
             f"device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} "
             f"GiB [{card}]")
-        fold_split(tl.marks, wall, card, name)
+        busy = fold_split(tl.marks, wall, card, name)
+        ONE_DEVICE[name] = (wall, busy)      # beside phase 36's engines
         if name != "b24 shortcut":
             merges[name] = ms
         if name == "b24 literal":
@@ -1397,7 +1447,7 @@ def k33_path(dev, card, chunks):
     check_launched(counts, ("merge_reduce_wide",), "the k=33 count")
     log(f"  k=33 count wall {wall:.4f} s, {n_kmers / wall:.1f} k-mers/s "
         f"[{card}]")
-    fold_split(tl.marks, wall, card, "k33")
+    ONE_DEVICE["k33"] = (wall, fold_split(tl.marks, wall, card, "k33"))
     return counts, ms
 
 
@@ -1776,13 +1826,13 @@ class _LookupTimeline:
 
     def __getattr__(self, attr):
         fn = getattr(self.countstep, attr)
+        if attr == "marker_step":     # the run's marker step, marked
+            return lambda *a, **kw: self._marked(fn(*a, **kw), "markers")
         name = {"triobin_reduce": "post", "trioeval_mark_mid": "post",
-                "sexchr_reduce": "post", "run_mark_compact": "markers",
-                "run_marker_sort": "markers",
-                "run_diff_sort": "markers"}.get(attr)
-        if name is None:
-            return fn
+                "sexchr_reduce": "post"}.get(attr)
+        return fn if name is None else self._marked(fn, name)
 
+    def _marked(self, fn, name):
         def marked(*args, **kw):
             out = fn(*args, **kw)
             self.mark(name)
@@ -3091,6 +3141,26 @@ def reader_paths(dev, card, d, paths, reads, results, by_path):
         f"inside the reader over {rec['chunks']} chunks")
 
 
+@contextlib.contextmanager
+def timed_exact_dump():
+    """Inside the block, `-X`'s dump (the khashl replay, the cross-check
+    and the write) appends its seconds to the list yielded."""
+    from yak_tpu_torch.io import exactdump
+
+    real_dump, dump_s = exactdump.dump_yak_exact, []
+
+    def timed_dump(*args, **kw):
+        t0 = time.perf_counter()
+        real_dump(*args, **kw)
+        dump_s.append(time.perf_counter() - t0)
+
+    exactdump.dump_yak_exact = timed_dump
+    try:
+        yield dump_s
+    finally:
+        exactdump.dump_yak_exact = real_dump
+
+
 def exact_paths(card, d, paths, results, by_path):
     """Phase 32: `count -X` through the CLI in this process on the card,
     for each of EXACT_CONFIGS (k=31; -b24 over the reads and then the
@@ -3101,35 +3171,22 @@ def exact_paths(card, d, paths, results, by_path):
     Then -X -b37 must be refused (exit 1, yak_tpu's message: its packed
     rank key would not fit) and -X -b24 under psort must raise."""
     from yak_tpu_torch import cli
-    from yak_tpu_torch.io import exactdump
 
     needed = {"k31": ("merge_reduce",),
               "b24": ("merge_reduce_weighted", "merge_reduce"),
               "k33": ("merge_reduce_wide",)}
-    real_dump = exactdump.dump_yak_exact
     for name, (flags, files) in EXACT_CONFIGS.items():
         label = f"-X {name}"
         out = os.path.join(d, f"x_{name}.yak")
-        dump_s = []
-
-        def timed_dump(*args, **kw):
-            t0 = time.perf_counter()
-            real_dump(*args, **kw)
-            dump_s.append(time.perf_counter() - t0)
-
         reset_counts()
-        exactdump.dump_yak_exact = timed_dump
-        try:
-            with fold_timeline() as tl, \
-                    captured("merge", "merge_reduce") as ms, \
-                    contextlib.redirect_stderr(io.StringIO()) as err:
-                t0 = time.perf_counter()
-                rc = cli.main(["count", "-X", *flags, "--device", "cuda",
-                               "-o", out, *(paths[f] for f in files)])
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-        finally:
-            exactdump.dump_yak_exact = real_dump
+        with timed_exact_dump() as dump_s, fold_timeline() as tl, \
+                captured("merge", "merge_reduce") as ms, \
+                contextlib.redirect_stderr(io.StringIO()) as err:
+            t0 = time.perf_counter()
+            rc = cli.main(["count", "-X", *flags, "--device", "cuda",
+                           "-o", out, *(paths[f] for f in files)])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
         if rc != 0:
             raise AssertionError(f"{label}: exit {rc}: "
                                  f"{err.getvalue()[-2000:]}")
@@ -3139,6 +3196,7 @@ def exact_paths(card, d, paths, results, by_path):
             f"{md5} (want {EXACT_DIGEST[name]}), cross-check passed; wall "
             f"{wall:.4f} s, of it the replay, cross-check and dump "
             f"{dump_s[0]:.4f} s [{card}]")
+        EXACT_WALLS[name] = (wall, dump_s[0])
         if md5 != EXACT_DIGEST[name]:
             raise AssertionError(f"{label}: md5 {md5} != "
                                  f"{EXACT_DIGEST[name]}")
@@ -3625,9 +3683,325 @@ def multihost_phase(card, reads, results, by_path):
             f"{b1:.4f} ms [{card}]")
 
 
+# -- phase 36: the other engines and knobs at real size ----------------------
+
+@contextlib.contextmanager
+def knobs(settings):
+    """The YAK_TPU_* variables of `settings` ({name without the prefix:
+    value}) set inside the block, and as they were after; the port reads
+    them at each fold and each run."""
+    names = {f"YAK_TPU_{k}": v for k, v in settings.items()}
+    before = {name: os.environ.get(name) for name in names}
+    os.environ.update(names)
+    try:
+        yield
+    finally:
+        for name, value in before.items():
+            if value is None:
+                del os.environ[name]
+            else:
+                os.environ[name] = value
+
+
+def knob_text(settings):
+    return " ".join(f"YAK_TPU_{k}={v}" for k, v in settings.items())
+
+
+def beside_default(what, wall, busy, units, default, card):
+    """One knob run's wall and device busy time, its busy time per fold
+    or chunk, beside the default engine's run of the same workload
+    earlier in this script (ONE_DEVICE)."""
+    line = (f"  {what}: wall {wall:.4f} s, device {busy:.4f} ms, "
+            f"{busy / max(units, 1):.4f} ms a fold or chunk ({units})")
+    if default in ONE_DEVICE:
+        w1, b1 = ONE_DEVICE[default]
+        line += (f"; the default engine ({default}): wall {w1:.4f} s, "
+                 f"device {b1:.4f} ms")
+    log(line + f" [{card}]")
+
+
+def no_launch(counts, what, kernels=None):
+    """Raise if `what` launched any kernel of `kernels` (all by
+    default)."""
+    hit = {n: c for n, c in counts.items()
+           if c and (kernels is None or n in kernels)}
+    if hit:
+        raise AssertionError(f"{what} launched {hit}")
+
+
+def engine_count_paths(dev, card, chunks, files, results, by_path):
+    """Phase 36's count runs: each engine or knob on phase 4's chunks,
+    phase 11's k=33 and phase 10's -b24 literal, gates, launches, the
+    per-fold device split; every compaction call of the compact engine
+    held bit for bit against compact_plain, and the third fold's call
+    of the first run timed."""
+    count = lambda **kw: lambda: run_count(chunks, dev, **kw)  # noqa: E731
+    bloom = lambda: run_bloom(files, 24, dev)                  # noqa: E731
+    runs = (   # name, knobs, run, gates, needed, kernels it must not launch
+        ("compact_engine", {"ENGINE": "compact"}, count(), "count",
+         ("compact",), ("merge_reduce",), "count"),
+        ("xla_engine", {"ENGINE": "xla"}, count(), "count", (), None,
+         "count"),
+        ("compact_engine replay", {"ENGINE": "compact"},
+         count(cap_log2=REPLAY_CAP_LOG2), "count", ("compact",),
+         ("merge_reduce",), None),
+        ("wide0 k33", {"WIDE": "0"}, count(k=K33), "k33", (), None, "k33"),
+        ("compact_engine b24", {"ENGINE": "compact"}, bloom, "bloom",
+         ("compact",), ("merge_reduce", "merge_reduce_weighted"),
+         "b24 literal"),
+        ("xla_engine b24", {"ENGINE": "xla"}, bloom, "bloom", (), None,
+         "b24 literal"),
+        ("sentinel0 b24", {"BLOOM_SENTINEL": "0"}, bloom, "bloom",
+         ("merge_reduce_weighted", "merge_reduce"), ("compact",),
+         "b24 literal"),
+        ("pallas0 count", {"PALLAS": "0"}, count(), "count", (), None,
+         "count"))
+    gates = {"count": (TOTAL_GATE, HIST_GATE),
+             "k33": (K33_DISTINCT, K33_HIST),
+             "bloom": (BLOOM_DISTINCT, BLOOM_HIST)}
+    err, n_checked, timed = 0, 0, None
+    for name, settings, run, gate, needed, banned, default in runs:
+        reset_counts()
+        with knobs(settings), fold_timeline() as tl, \
+                captured("compact", "compact") as cs:
+            t0 = time.perf_counter()
+            table = run()
+            wall = time.perf_counter() - t0
+        by_path[name] = counts = read_counts()
+        check_gates(table, f"{name} ({knob_text(settings)}), cap "
+                           f"{table.cap}", *gates[gate])
+        check_launched(counts, needed, name)
+        no_launch(counts, name, banned)
+        if "replay" in name and table.cap <= 1 << REPLAY_CAP_LOG2:
+            raise AssertionError(f"{name} never grew the table")
+        del table
+        busy = fold_split(tl.marks, wall, card, name)
+        beside_default(name, wall, busy,
+                       sum(m[0] == "start" for m in tl.marks), default, card)
+        calls = [args for args, _kw in cs]
+        if settings.get("ENGINE") == "compact":
+            if len(calls) != counts["compact"]:
+                raise AssertionError(f"{name}: {len(calls)} compaction calls "
+                                     f"for {counts['compact']} launches")
+            for i, args in enumerate(calls):
+                err = max(err, check_compact(args, f"{name} call {i}"))
+            n_checked += len(calls)
+            if timed is None:
+                timed = calls[-1]
+        del calls, cs
+    log(f"  the compact engine's {n_checked} compaction calls equal "
+        f"compact_plain bit for bit")
+    entry = time_compact(timed, "compaction (compact engine, third fold)",
+                         card)
+    r = results["compact"]
+    r["max_abs_err"] = max(r["max_abs_err"], err)
+    r["shapes"]["compact_engine_fold"] = entry
+
+
+def exact_compact_path(card, paths, by_path):
+    """Phase 32's `count -X -k31 -b24` (the reads, then the seed-101
+    reads) through the CLI under YAK_TPU_ENGINE=compact: the dump's md5
+    must be EXACT_DIGEST's; every compaction call checked."""
+    from yak_tpu_torch import cli
+
+    d = os.path.dirname(paths["reads"])
+    out = os.path.join(d, "x_compact_b24.yak")
+    name = "compact_engine -X b24"
+    reset_counts()
+    with knobs({"ENGINE": "compact"}), timed_exact_dump() as dump_s, \
+            fold_timeline() as tl, captured("compact", "compact") as cs, \
+            contextlib.redirect_stderr(io.StringIO()) as err:
+        t0 = time.perf_counter()
+        rc = cli.main(["count", "-X", "-k31", "-b24", "--device", "cuda",
+                       "-o", out, paths["reads"], paths[101]])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"{name}: exit {rc}: {err.getvalue()[-2000:]}")
+    by_path[name] = counts = read_counts()
+    md5 = file_md5(out)
+    os.unlink(out)
+    log(f"  {name}: dump md5 {md5} (want {EXACT_DIGEST['b24']}), wall "
+        f"{wall:.4f} s, of it the replay, cross-check and dump "
+        f"{dump_s[0]:.4f} s; phase 32's default engine: "
+        "{:.4f} s, of it {:.4f} s [{}]".format(*EXACT_WALLS["b24"], card))
+    if md5 != EXACT_DIGEST["b24"]:
+        raise AssertionError(f"{name}: md5 {md5} != {EXACT_DIGEST['b24']}")
+    check_launched(counts, ("compact",), name)
+    no_launch(counts, name, ("merge_reduce", "merge_reduce_weighted"))
+    for i, (args, _kw) in enumerate(cs):
+        check_compact(args, f"{name} call {i}")
+    log(f"  {name}: {len(cs)} compaction calls equal compact_plain")
+    fold_split(tl.marks, wall - dump_s[0], card, name)
+
+
+def knob_lookup_paths(dev, card, paths, count_items, ch_texts, results,
+                      by_path):
+    """Phase 36's lookups under JOIN=0, QV_SEG=1, MARK_COMPACT=0 and
+    PALLAS=0 against phase 4's table, each with its gates and launches;
+    every JOIN call of QV_SEG held against its plain version and one
+    timed."""
+    from yak_tpu_torch.ops import merge
+    from yak_tpu_torch.table import KmerTable
+
+    table = KmerTable(K, device=dev)
+    table._set_pairs(*count_items)
+    seg_joins = []
+    for settings, seeds, needed in (({"JOIN": "0"}, QV_SEEDS, ()),
+                                    ({"QV_SEG": "1"}, QV_SEEDS,
+                                     ("merge_join",)),
+                                    ({"PALLAS": "0"}, (101,), ())):
+        for seed in seeds:
+            name = f"{knob_text(settings)[8:].lower()} qv {seed}"
+            reset_counts()
+            with knobs(settings), captured("merge", "merge_join") as js:
+                wall, busy = qv_run(table, paths, seed, card)
+            by_path[name] = counts = read_counts()
+            check_launched(counts, needed, name)
+            no_launch({n: c for n, c in counts.items() if n not in needed},
+                      name)
+            beside_default(name, wall, busy, 8, f"qv {seed}", card)
+            if settings.get("QV_SEG"):
+                seg_joins += [args for args, _kw in js]
+    for i, args in enumerate(seg_joins):
+        check_join(args, f"QV_SEG JOIN {i}")
+    log(f"  QV_SEG: {len(seg_joins)} JOIN calls (the identity as their "
+        f"store lanes) equal merge_join_plain")
+    args = seg_joins[-1]
+    live, nq = int(args[2]), args[3].numel()
+    r = results["merge_join"]
+    r.setdefault("shapes", {})["qv_seg"] = time_kernel(
+        merge.merge_join, merge.merge_join_plain, args,
+        (12 * live + 16 * nq) / HBM_BYTES_PER_S * 1e3, None,
+        f"JOIN at QV_SEG's call (cap {args[0].numel()}, live {live}, B "
+        f"{nq})", card)
+    del seg_joins, args
+
+    for settings, banned in (({"MARK_COMPACT": "0"}, ("compact",)),
+                             ({"JOIN": "0"}, None)):
+        name = f"{knob_text(settings)[8:].lower()} chkerr reads"
+        reset_counts()
+        with knobs(settings):
+            t0 = time.perf_counter()
+            text = run_chkerr(table, paths["reads"], CHKERR_CHUNKS["reads"])
+            wall = time.perf_counter() - t0
+        by_path[name] = counts = read_counts()
+        if text != ch_texts["reads"]:
+            raise AssertionError(f"{name}: output differs from phase 8's")
+        no_launch(counts, name, banned)
+        log(f"  {name}: {text.count(chr(10))} rows, phase 8's text, wall "
+            f"{wall:.4f} s [{card}]")
+    del table
+
+
+def knob_trio_algebra_paths(dev, card, count_items, d, paths, by_path):
+    """Phase 36's triobin 7 under JOIN=0, trioeval 17 under
+    MARK_COMPACT=0, and subtract, isec, inspect and sexchr under JOIN=0,
+    with their md5 gates; under JOIN=0 no kernel launches."""
+    from yak_tpu_torch.models import sexchr
+    from yak_tpu_torch.models.inspect import main_inspect
+    from yak_tpu_torch.table import KmerTable
+
+    genome = np.random.default_rng(42).integers(0, 4, GENOME_LEN,
+                                                dtype=np.uint8)
+    tb, te = trio_tables(dev, count_items, genome)
+    for cmd, table, seed, digests, settings, banned in (
+            ("triobin", tb, 7, TB_DIGEST, {"JOIN": "0"}, None),
+            ("trioeval", te, 17, TE_DIGEST, {"MARK_COMPACT": "0"},
+             ("compact",))):
+        label = f"{knob_text(settings)[8:].lower()} {cmd}"
+        with knobs(settings):
+            _texts, counts = trio_gated(cmd, table, paths, (seed,), digests,
+                                        card, label)
+        by_path[label] = counts
+        no_launch(counts, label, banned)
+    del tb, te
+
+    with knobs({"JOIN": "0"}):
+        other = KmerTable.restore(paths["b24"], dev)
+        for op, want in (("subtract", SUBTRACT_DISTINCT),
+                         ("isec", ISEC_DISTINCT)):
+            t = KmerTable.restore(paths["a"], dev)
+            reset_counts()
+            _, wall, span = timed_op(lambda: getattr(t, op)(other))
+            out = os.path.join(d, f"join0_{op}.yak")
+            with contextlib.redirect_stderr(io.StringIO()):
+                t.dump(out)
+            md5 = file_md5(out)
+            log(f"  join=0 {op}: {t.tot} keys (want {want}), dump md5 {md5};"
+                f" wall {wall:.4f} s, device span {span:.4f} ms [{card}]")
+            if t.tot != want:
+                raise AssertionError(f"join=0 {op}: {t.tot} keys != {want}")
+            check_digest(op, md5)
+            by_path[f"join=0 {op}"] = counts = read_counts()
+            no_launch(counts, f"join=0 {op}")
+            del t
+        del other
+        sink = _Digest()
+        reset_counts()
+        with contextlib.redirect_stderr(io.StringIO()):
+            _, wall, _span = timed_op(lambda: main_inspect(
+                paths["a"], paths["b24"], out=sink, device=dev))
+        log(f"  join=0 inspect a.yak b24.yak: md5 {sink.digest()}; wall "
+            f"{wall:.4f} s [{card}]")
+        check_digest("inspect2", sink.digest())
+        by_path["join=0 inspect"] = counts = read_counts()
+        no_launch(counts, "join=0 inspect")
+        ch = sexchr.load_sexchr_tables(
+            *(paths[f"{n}.yak"] for n in SEXCHR_REGIONS), dev)
+        buf = io.StringIO()
+        reset_counts()
+        _, wall, _span = timed_op(lambda: sexchr.main_sexchr(
+            sexchr.SexchrOpts(), ch, [paths["hap1"], paths["hap2"]], out=buf))
+        md5 = hashlib.md5(buf.getvalue().encode()).hexdigest()[:12]
+        log(f"  join=0 sexchr: md5 {md5}; wall {wall:.4f} s [{card}]")
+        check_digest("sexchr", md5)
+        by_path["join=0 sexchr"] = counts = read_counts()
+        no_launch(counts, "join=0 sexchr")
+
+
+def knob_phase(dev, card, chunks, count_items, ch_texts, lookup_paths,
+               bloom_dir, results, by_path):
+    """Phase 36, on phases 6-8's inputs (the qv sets, the reads as FASTQ)
+    and phase 10's (the one-line FASTA of the reads and its hard link,
+    also phase 32's -X input)."""
+    genome = np.random.default_rng(42).integers(0, 4, GENOME_LEN,
+                                                dtype=np.uint8)
+    d = tempfile.mkdtemp(prefix="yak_tpu_torch_knobs_")
+    try:
+        t0 = time.perf_counter()
+        files = [os.path.join(bloom_dir, name) for name in
+                 ("bloom_reads.fa", "bloom_reads_link.fa")]
+        paths = {seed: lookup_paths[seed] for seed in QV_SEEDS}
+        paths["reads"] = files[0]
+        paths.update(trio_sets(d, genome, (7, 17)))
+        paths.update(sexchr_files(d, genome))
+        algebra_tables(dev, d, count_items, paths)
+        log(f"  inputs and tables made in {time.perf_counter() - t0:.3f} s")
+        engine_count_paths(dev, card, chunks, files, results, by_path)
+        exact_compact_path(card, paths, by_path)
+        knob_lookup_paths(dev, card, lookup_paths, count_items, ch_texts,
+                          results, by_path)
+        knob_trio_algebra_paths(dev, card, count_items, d, paths, by_path)
+    finally:
+        for name in os.listdir(d):
+            os.unlink(os.path.join(d, name))
+        os.rmdir(d)
+    if any(v in os.environ for v in KNOB_VARS):
+        raise AssertionError("a knob outlived phase 36")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on the card",
+              file=sys.stderr)
+        return 1
+    knobs_set = [v for v in KNOB_VARS if v in os.environ]
+    if knobs_set:
+        # under these the folds and lookups run the kernels' plain
+        # versions, so no time taken here would be the default path's
+        print(f"chip_smoke: unset {', '.join(knobs_set)}: the script times "
+              f"the default engines and sets each knob itself (phase 36)",
               file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
@@ -3674,48 +4048,38 @@ def main():
     phase("5. CLI on the card vs on the CPU")
     cli_check()
 
-    d = tempfile.mkdtemp(prefix="yak_tpu_torch_lookup_")
-    try:
-        t0 = time.perf_counter()
-        paths = write_lookup_inputs(d, reads)
-        log(f"  lookup inputs written in {time.perf_counter() - t0:.3f} s")
+    # phases 6-8's inputs and 10-12's stay for phase 36
+    t0 = time.perf_counter()
+    lookup_paths = write_lookup_inputs(kept_dir("lookup"), reads)
+    log(f"  lookup inputs written in {time.perf_counter() - t0:.3f} s")
 
-        phase("6. lookup kernels vs plain torch on the card")
-        results.update(lookup_kernel_checks(dev, table, paths, card))
+    phase("6. lookup kernels vs plain torch on the card")
+    results.update(lookup_kernel_checks(dev, table, lookup_paths, card))
 
-        phase("7. qv at real size")
-        by_path["qv"] = {"merge_join": qv_path(table, paths, card)}
+    phase("7. qv at real size")
+    by_path["qv"] = {"merge_join": qv_path(table, lookup_paths, card)}
 
-        phase("8. chkerr at real size")
-        n, ch_texts = chkerr_path(table, paths, card)
-        by_path["chkerr"] = {"compact": n}
-    finally:
-        for name in os.listdir(d):
-            os.unlink(os.path.join(d, name))
-        os.rmdir(d)
+    phase("8. chkerr at real size")
+    n, ch_texts = chkerr_path(table, lookup_paths, card)
+    by_path["chkerr"] = {"compact": n}
 
     phase("9. lookup CLI on the card vs on the CPU")
     lookup_cli_check()
     count_items = table.items()         # phases 17-21 build on its keys
     del table
 
-    d = tempfile.mkdtemp(prefix="yak_tpu_torch_bloom_")
-    try:
-        phase("10. the -b two-pass at real size")
-        counts, merges, compacts = bloom_paths(dev, card, d, reads)
-        by_path.update(counts)
+    bloom_dir = kept_dir("bloom")
+    phase("10. the -b two-pass at real size")
+    counts, merges, compacts = bloom_paths(dev, card, bloom_dir, reads)
+    by_path.update(counts)
 
-        phase("11. the k=33 count at real size")
-        by_path["k33"], merges["k33"] = k33_path(dev, card, chunks)
+    phase("11. the k=33 count at real size")
+    by_path["k33"], merges["k33"] = k33_path(dev, card, chunks)
 
-        phase("12. the overflow replays from a 2^21-lane table")
-        counts, replayed = replay_paths(dev, chunks, d)
-        by_path.update(counts)
-        merges.update(replayed)
-    finally:
-        for name in os.listdir(d):
-            os.unlink(os.path.join(d, name))
-        os.rmdir(d)
+    phase("12. the overflow replays from a 2^21-lane table")
+    counts, replayed = replay_paths(dev, chunks, bloom_dir)
+    by_path.update(counts)
+    merges.update(replayed)
 
     phase("13. weighted and wide merge modes vs plain torch on the card")
     modes, count_err, sent_err, sentinel = mode_kernel_checks(
@@ -3769,6 +4133,9 @@ def main():
     phase(f"35. count over {MH_PROCS} processes, {MH_SHARDS} shards of the "
           f"card each")
     multihost_phase(card, reads, results, by_path)
+    phase("36. the other engines and knobs at real size")
+    knob_phase(dev, card, chunks, count_items, ch_texts, lookup_paths,
+               bloom_dir, results, by_path)
     torch.cuda.synchronize()
 
     print(json.dumps({"kernels": [

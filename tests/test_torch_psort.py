@@ -134,12 +134,16 @@ def lookup_inputs(tmp_path_factory):
       "YAK_TPU_PSORT_WIDE": "0"}, None, None, True),
 ])
 def test_psort_enabled(env, setting, gated, wide, on):
-    """The engine choice of yak_tpu's table._pallas_mode (count folds)
-    and countstep.psort_enabled (qv and chkerr runs, gated None)."""
+    """The psort side of the engine choice: whether yak_tpu's
+    table._pallas_mode (countstep.fold_engine) puts a count fold on the
+    psort engine, and countstep.psort_enabled (qv and chkerr runs,
+    gated None)."""
     for name, value in setting.items():
         env.setenv(name, value)
-    assert pcs.psort_enabled(fold=gated is not None, gated=bool(gated),
-                             wide=bool(wide)) is on
+    if gated is None:
+        assert pcs.psort_enabled() is on
+    else:
+        assert (pcs.fold_engine(33 if wide else 31, gated) == "psort") is on
 
 
 def test_count_replay_matches_jax_psort(env, sort_spy):

@@ -29,6 +29,7 @@ from yak_tpu.ops import countstep as jcs
 from yak_tpu_torch import cli
 from yak_tpu_torch.models import trio as ptrio
 from yak_tpu_torch.ops import countstep as pcs
+from yak_tpu_torch.ops import sorttable as psorttable
 from yak_tpu_torch.table import KmerTable
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -115,9 +116,9 @@ def test_restore_into_refuses_other_k(inputs, tmp_path):
 
 @pytest.mark.parametrize("case", ["runs", "sparse", "none", "all"])
 def test_last_set_lane_matches_cummax(case):
-    """countstep.last_set_lane against the running maximum it stands
-    for (numpy's maximum.accumulate of the set lanes, -1 before the
-    first)."""
+    """countstep.last_set_lane, and the scatter form it takes on the
+    card, against the running maximum it stands for (numpy's
+    maximum.accumulate of the set lanes, -1 before the first)."""
     rng = np.random.default_rng(len(case))
     n = 5000
     mask = {"runs": np.repeat(rng.random(400) < 0.5,
@@ -127,9 +128,10 @@ def test_last_set_lane_matches_cummax(case):
             "all": np.ones(n, bool)}[case]
     mask = np.resize(mask, n)
     want = np.maximum.accumulate(np.where(mask, np.arange(n), -1))
-    got = pcs.last_set_lane(torch.from_numpy(mask))
-    assert got.dtype == torch.int32
-    np.testing.assert_array_equal(got.numpy(), want)
+    for fn in (pcs.last_set_lane, psorttable.last_set_lane_scatter):
+        got = fn(torch.from_numpy(mask))
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), want)
 
 
 def _value_stream(seed, M):

@@ -9,6 +9,10 @@ the native library (`native/`).  The lookups (`qv`, `chkerr`,
 and `isec` take tables of any k in [1, 63]; `cntasm` refuses k >= 32
 and `print` exits 1 on such a table, as in the JAX package.
 
+YAK_TPU_PROFILE=<dir> writes a `torch.profiler` trace of the command
+into <dir> (`utils.maybe_profile`), as the JAX package writes its
+profiler trace.
+
 The device is chosen explicitly: `--device cuda|cuda:N|cpu` anywhere
 on the command line, else `cuda`.  When CUDA is asked for and absent,
 the CLI raises; it never falls back to the CPU on its own.
@@ -500,8 +504,10 @@ def main(argv=None):
         print("[E::main] unknown command", file=sys.stderr)
         return 1
     device = resolve_device(dev_name or "cuda")
+    from yak_tpu_torch.utils import maybe_profile
     try:
-        ret = _COMMANDS[cmd](argv[1:], device)
+        with maybe_profile(device):
+            ret = _COMMANDS[cmd](argv[1:], device)
     except FileNotFoundError as e:
         # reference-style clean failure (main.c:82,267)
         print(f"ERROR: failed to open file '{e.filename or e}'",

@@ -15,7 +15,11 @@ merges runs that span a chunk boundary (`_ChkerrFold`, carried over
 unchanged).  With the psort engine (YAK_TPU_PSORT=1,
 `countstep.psort_enabled`, read per run) the query sort and the marker
 step run through the sort kernel: the markers are sorted by lane, in
-place of the compaction (the JAX package's psort branch).
+place of the compaction (the JAX package's psort branch).  Under
+YAK_TPU_MARK_COMPACT=0, YAK_TPU_JOIN=0 or YAK_TPU_PALLAS=0 the markers
+come from one torch.sort (`countstep.marker_step`), and under the last
+two the lookups from the sorted join (`countstep.lookup_keys`), as the
+JAX package's get_chkerr_join_post and get_chkerr_step take them.
 
 A MeshTable (yak_tpu's `_main_chkerr_mesh`, chkerr.py:230-265) takes
 the routed lookups of `parallel.mesh.mesh_routed_groups`, and
@@ -60,7 +64,7 @@ def main_chkerr(opt, table, seq_fn, out=None):
     M = chunk - k + 1
     fold = _ChkerrFold(opt, k, out)
     psort = countstep.psort_enabled()
-    mark = countstep.run_marker_sort if psort else countstep.run_mark_compact
+    mark = countstep.marker_step(psort)
     maxr = countstep.CHKERR_MAX_RUNS
 
     def post(_packed, vals, valid):

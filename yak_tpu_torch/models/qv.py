@@ -22,11 +22,18 @@ same, the carry following each chunk to its shard's device, so the
 output is the same bytes, -p and -E lines included (`yak_tpu` takes its
 per-position scan path for -E on a mesh).
 
-Not ported here: the seg-payload variant and the per-position scan path
-(`_run_qv_scan`, models/scan.py): ROADMAP.md Queue 1.
+YAK_TPU_QV_SEG=1 takes the seg-payload join post on one device for
+k <= 31 without -E, where the JOIN runs (`countstep.qv_lookup_seg`,
+`qv_join_post_seg`: the JOIN's values in key order beside their
+segment ids, then one sort restores the grouping, not the order).
+
+Not ported: the per-position scan path (`_run_qv_scan`), which
+`yak_tpu` takes for -E on a mesh and for its `scan=` argument; the
+fused fold above serves both here.
 """
 
 import math
+import os
 import sys
 from dataclasses import dataclass, field
 
@@ -142,16 +149,25 @@ def run_qv(opt, fn, table, out=None):
     carry_ek = [""]            # EK rows of the chunk-spanning seq
     want_ek = bool(opt.print_err_kmer)
     psort = countstep.psort_enabled()
+    # the seg-payload join post (yak_tpu/models/qv.py:416-440): with the
+    # JOIN, on one device, k <= 31, without -E
+    seg = (os.environ.get("YAK_TPU_QV_SEG", "0") == "1"
+           and countstep.join_enabled() and not want_ek and k <= 31
+           and not isinstance(table, MeshTable))
     prog = Progress("run_qv")
 
     for packed, vals, valid, meta_d, info, ns in _qv_lookups(
-            fn, table, chunk, M, opt.min_len, psort):
+            fn, table, chunk, M, opt.min_len, psort, seg):
         nseq = len(packed.rec_gid)
         # the carry follows the chunks to their shards' devices
         state = tuple(t.to(vals.device) for t in state)
-        outs = countstep.qv_join_post(vals, valid, meta_d, state, ns, M,
-                                      float(opt.min_frac), want_ek,
-                                      psort=psort and not want_ek)
+        if seg:    # `valid` holds each sorted value's segment
+            outs = countstep.qv_join_post_seg(vals, valid, meta_d, state,
+                                              ns, M, float(opt.min_frac))
+        else:
+            outs = countstep.qv_join_post(vals, valid, meta_d, state, ns, M,
+                                          float(opt.min_frac), want_ek,
+                                          psort=psort and not want_ek)
         state = outs[:4]
 
         ek_txt = None
@@ -191,14 +207,16 @@ def run_qv(opt, fn, table, out=None):
     return state[0].cpu().numpy()
 
 
-def _qv_lookups(fn, table, chunk, M, min_len, psort):
+def _qv_lookups(fn, table, chunk, M, min_len, psort, seg=False):
     """Each chunk of `fn` that holds records, in order, with its lookup
     and its meta row on the lookup's device: (packed, vals, valid,
     meta_d, info, ns) (`_qv_chunk_meta`, whose carry mirror needs the
-    chunks in order).  One device: the chunk's `lookup_chunk`, its meta
-    uploaded first, as a blocking host-to-device copy waits for the work
-    on the stream.  A MeshTable: a group's routed lookups, then its
-    chunks' metas by copies from pinned memory, which do not."""
+    chunks in order).  One device: the chunk's `lookup_chunk` (with
+    `seg`, `qv_lookup_seg`, whose values come in key order and whose
+    second output is their segments), its meta uploaded first, as a
+    blocking host-to-device copy waits for the work on the stream.  A
+    MeshTable: a group's routed lookups, then its chunks' metas by
+    copies from pinned memory, which do not."""
     carry = [None]             # host mirror: which seq the carry is
 
     def meta(packed, dev, non_blocking):
@@ -223,9 +241,14 @@ def _qv_lookups(fn, table, chunk, M, min_len, psort):
             continue
         meta_d = meta(packed, dev, False)
         carg = pack_chunk_planes(packed, dev)
-        vals, valid = countstep.lookup_chunk(carg, table.k, table.keys,
-                                             table.cnt, table.size,
-                                             psort=psort)
+        if seg:
+            vals, valid = countstep.qv_lookup_seg(
+                carg, table.k, table.keys, table.cnt, table.size,
+                meta_d[0], meta_d[2])
+        else:
+            vals, valid = countstep.lookup_chunk(carg, table.k, table.keys,
+                                                 table.cnt, table.size,
+                                                 psort=psort)
         yield (packed, vals, valid) + meta_d
 
 

@@ -18,7 +18,11 @@ for `-p` the difference markers, for trioeval the run markers; the
 markers are compacted by the compaction kernel, or, under the psort
 engine (YAK_TPU_PSORT=1, `countstep.psort_enabled`, read per run),
 sorted by lane through the sort kernel, which also takes the query
-sort.  Only the sums and the markers come back.  The host folds
+sort; under YAK_TPU_MARK_COMPACT=0, YAK_TPU_JOIN=0 or YAK_TPU_PALLAS=0
+by one torch.sort (`countstep.marker_step`), the JAX package's
+full-lane marker sort, and under the last two the lookups take the
+sorted join (`countstep.lookup_keys`).  Only the sums and the markers
+come back.  The host folds
 (`_TriobinFold`, `_TeChainFold`, `_TeSeq`), the classifier and the
 output interleaving (`_BatchedOut`) are the JAX package's host code,
 carried over (the -p rows are formatted from Python ints).
@@ -317,7 +321,7 @@ def main_triobin(opt, table, seq_fn, out=None, chunk_cap=1 << 23,
     emit_diff = bool(opt.print_diff)
     fold = _TriobinFold(opt, k, _BatchedOut(out, batch_bases))
     psort = countstep.psort_enabled()
-    mark = countstep.run_diff_sort if psort else countstep.run_mark_compact
+    mark = countstep.marker_step(psort, diff=True)
     maxd = countstep.TRIOBIN_MAX_DIFF
 
     def post(packed, vals, valid):
@@ -437,7 +441,7 @@ def main_trioeval(opt, table, seq_fn, out=None, chunk_cap=1 << 23,
     bo = _BatchedOut(out, batch_bases)
     fold = _TeChainFold(opt, k, bo, glob)
     psort = countstep.psort_enabled()
-    mark = countstep.run_marker_sort if psort else countstep.run_mark_compact
+    mark = countstep.marker_step(psort)
     maxr = countstep.TRIOEVAL_MAX_RUNS
 
     def post(packed, vals, valid):

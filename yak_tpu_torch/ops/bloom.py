@@ -54,6 +54,7 @@ import torch
 
 from yak_tpu_torch import YAK_BLK_SHIFT
 from yak_tpu_torch.ops.keys import INT64_MAX, i32_bits, srl
+from yak_tpu_torch.ops.sorttable import last_set_lane
 
 BLK_MASK = (1 << YAK_BLK_SHIFT) - 1          # 511
 BLK_WORDS = 1 << (YAK_BLK_SHIFT - 5)         # 16 words a block
@@ -132,10 +133,8 @@ def serial_count(bf, base, zs, active, rank, rank_bound):
     first-occurrence position, distinct and below rank_bound.  The
     inactive lanes sort last as INT64_MAX; the active packed keys are
     below 2^63 (exact_gate_fits), so signed order is their order.  Each
-    run's head is found by `countstep.last_set_lane`, not a
+    run's head is found by `sorttable.last_set_lane`, not a
     torch.cummax, which scans in one block on the card."""
-    from yak_tpu_torch.ops.countstep import last_set_lane
-
     nh, n = len(zs), base.shape[0]
     rank_bits = max(1, int(max(rank_bound - 1, 1)).bit_length())
     sh = rank_bits + 3

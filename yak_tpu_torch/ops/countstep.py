@@ -19,6 +19,17 @@ INT64_MAX for invalid lanes, k >= 32 hashes wide-encoded
 (`ops/keys.encode_wide`): the TPU prep's complement trick, stream bit
 and u32 planes exist for the TPU kernel only.
 
+A fold's engine is `fold_engine`'s (yak_tpu/table.py::_pallas_mode,
+read at each fold): the default above ("pmerge"), psort, or the
+sort-merge engines of `get_count_step` (`sortmerge_step`: the
+extraction, `gate_batch` (`_gate_batch` over `sorttable.dedup`) and
+`sorttable.merge_batch`, "xla", all plain torch, or
+`sorttable.merge_stream` closed up by the compaction kernel and
+`finalize_compacted`, "compact").  The lookups JOIN through the kernel
+unless `join_enabled` says no (YAK_TPU_JOIN=0, YAK_TPU_PALLAS=0,
+`kernels_enabled`), when they take the sorted join
+(`sorttable.lookup`); the markers follow `marker_step`.
+
 The psort engine (`psort_enabled`, opt-in as in the JAX package) runs
 the batch sorts through the hand-written sort kernel (`ops/sort.py`)
 instead: the count fold's batch sort (`get_count_presort_step`, the
@@ -45,7 +56,9 @@ reductions and -p markers (`_triobin_reduce`, `get_triobin_join_post`,
 `get_triobin_psort_mid`) and trioeval's run markers (`_te_emit`,
 `get_trioeval_mark_mid`, `get_trioeval_psort_mid`) and sexchr's
 segment sums (`_sexchr_reduce`, `get_sexchr_join_post`,
-`get_sexchr_psort_mid`).  A k >= 32 lookup
+`get_sexchr_psort_mid`), and qv's seg-payload post
+(`get_qv_join_pre_seg`, `get_qv_join_post_seg` and their helpers:
+`qv_lookup_seg`, `qv_join_post_seg`).  A k >= 32 lookup
 goes through the same JOIN, its queries wide-encoded.  The JOIN writes
 each query's value at its original lane, so `plookup_post`'s order
 restore, `join_restore_vals` and `qv_psort_pad` have no counterpart
@@ -60,38 +73,95 @@ import torch
 
 from yak_tpu_torch import YAK_MAX_COUNT
 from yak_tpu_torch.ops import bloom, compact, merge, sort
-from yak_tpu_torch.ops.keys import (INT64_MAX, decode_wide, encode_wide,
-                                    i32_bits)
+from yak_tpu_torch.ops import sorttable as st
+from yak_tpu_torch.ops.keys import (INT64_MAX, U32_MASK, decode_wide,
+                                    encode_wide, i32_bits)
 from yak_tpu_torch.ops.kmers import extract_from_planes, extract_periodic
+from yak_tpu_torch.ops.sorttable import last_set_lane
 
 MARK_DROP = -(1 << 31)       # khi of a lane the compaction drops (bit 31)
 INT32_MAX = (1 << 31) - 1
 
 
-def psort_enabled(fold=False, gated=False, wide=False):
-    """Whether a count fold (`fold`, gated or not, wide or not) or a qv or
-    chkerr run takes the psort engine, read at each call as the JAX
-    package reads it.  A qv or chkerr run: YAK_TPU_PSORT=1 alone
-    (countstep.psort_enabled).  A fold (table._pallas_mode):
-    YAK_TPU_ENGINE=xla keeps every fold off it; a k >= 32 fold takes it
-    under YAK_TPU_PSORT=1 unless YAK_TPU_PSORT_WIDE=0; a k <= 31 fold
-    takes the engine that YAK_TPU_ENGINE=psort|pmerge|compact names
-    (the port runs its default engine for the other two), else it takes
-    psort under YAK_TPU_PSORT=1, a gated one unless
-    YAK_TPU_PSORT_BLOOM=0.  The JAX package's interpret hook and Mosaic
-    self-test have no counterpart."""
+def kernels_enabled():
+    """YAK_TPU_PALLAS (pallas_compact.enabled): 0, false or no sends
+    every site that consults it to its sort path (the sort-merge folds,
+    the sorted join, the markers by sort), read at each call.  It is a
+    user's choice: nothing else engages those paths."""
+    return os.environ.get("YAK_TPU_PALLAS", "1") not in ("0", "false", "no")
+
+
+def join_enabled():
+    """Whether the lookups JOIN through the merge-JOIN kernel
+    (countstep.join_enabled): unless YAK_TPU_JOIN=0 or the kernels are
+    off, in which case they take the sorted join (`sorttable.lookup`).
+    The JAX package never JOINs k >= 32 keys; the port's JOIN takes
+    them wide-encoded, so the switch has no k."""
+    return kernels_enabled() and os.environ.get("YAK_TPU_JOIN", "1") != "0"
+
+
+def mark_compact_enabled():
+    """Whether chkerr's, trioeval's and triobin -p's markers are taken by
+    the compaction kernel: where the JOIN runs, unless
+    YAK_TPU_MARK_COMPACT=0 (yak_tpu/models/chkerr.py:81, trio.py:654);
+    else by one torch.sort (`run_marker_sort`, `run_diff_sort`), as the
+    JAX package's non-JOIN steps sort them."""
+    return (join_enabled()
+            and os.environ.get("YAK_TPU_MARK_COMPACT", "1") != "0")
+
+
+def psort_enabled():
+    """Whether a lookup run (qv, chkerr, triobin, trioeval, inspect,
+    sexchr) sorts through the sort kernel: YAK_TPU_PSORT=1 where the
+    JOIN runs, as the JAX package takes its psort branches only under
+    its JOIN (countstep.psort_enabled, models/*.py ps_post).  Read at
+    each call."""
+    return os.environ.get("YAK_TPU_PSORT", "0") == "1" and join_enabled()
+
+
+def fold_engine(k, gated=False, exact=False):
+    """The engine of a count fold (table._pallas_mode,
+    yak_tpu/table.py:287-376), read at each call:
+
+      "pmerge"  torch.sort batch sort + the merge-reduce kernel (the
+                default), gated by the sentinel or plain gate post;
+      "psort"   the batch sort through the sort kernel;
+      "compact" the sort-merge without its compaction sort, the merged
+                stream closed up by the compaction kernel (k <= 31);
+      "xla"     the sort-merge in plain torch, no kernel.
+
+    With the precedence of the JAX package: a serial-exact gated fold
+    (`exact`, -X) under YAK_TPU_PSORT=1 or YAK_TPU_ENGINE=psort raises;
+    YAK_TPU_ENGINE=xla or YAK_TPU_PALLAS=0 takes "xla" at any k; a
+    k >= 32 fold takes "xla" when exact, "psort" under YAK_TPU_PSORT=1
+    unless YAK_TPU_PSORT_WIDE=0, "pmerge" unless YAK_TPU_WIDE=0, else
+    "xla"; a k <= 31 fold takes the engine YAK_TPU_ENGINE=pmerge|compact
+    |psort names, else psort under YAK_TPU_PSORT=1 (a gated one unless
+    exact or YAK_TPU_PSORT_BLOOM=0), else pmerge.  Any other value of
+    YAK_TPU_ENGINE is auto.  The JAX package's interpret hooks and
+    Mosaic self-tests have no counterpart."""
     env = os.environ
+    forced = env.get("YAK_TPU_ENGINE", "auto")
     on = env.get("YAK_TPU_PSORT", "0") == "1"
-    if not fold:
-        return on
-    engine = env.get("YAK_TPU_ENGINE", "auto")
-    if engine == "xla":
-        return False
-    if wide:
-        return on and env.get("YAK_TPU_PSORT_WIDE", "1") != "0"
-    if engine in ("psort", "pmerge", "compact"):
-        return engine == "psort"
-    return on and not (gated and env.get("YAK_TPU_PSORT_BLOOM", "1") == "0")
+    if exact and (on or forced == "psort"):
+        raise RuntimeError(
+            "-X (byte-exact dump) requires the default engine's "
+            "serial-exact Bloom gate; unset YAK_TPU_PSORT/"
+            "YAK_TPU_ENGINE=psort or drop -X")
+    if forced == "xla" or not kernels_enabled():
+        return "xla"
+    if k > 31:
+        if exact:
+            return "xla"
+        if on and env.get("YAK_TPU_PSORT_WIDE", "1") != "0":
+            return "psort"
+        return "pmerge" if env.get("YAK_TPU_WIDE", "1") != "0" else "xla"
+    if forced in ("pmerge", "compact", "psort"):
+        return forced
+    if gated:
+        return ("psort" if on and not exact
+                and env.get("YAK_TPU_PSORT_BLOOM", "1") != "0" else "pmerge")
+    return "psort" if on else "pmerge"
 
 
 def extract(carg, k):
@@ -129,19 +199,20 @@ def sort_batch(h, valid, wide=False, psort=False, with_perm=False):
 
 
 def count_step(carg, k, tkeys, tcnt, size, create, gate=None, hook=None,
-               psort=False):
-    """One fold: extract + sort [+ Bloom gate post] + merge-reduce +
-    finalize.  k >= 32 folds wide-encoded keys.
+               engine="pmerge"):
+    """One fold on the engine `fold_engine` names: extract + sort [+ Bloom
+    gate post] + merge-reduce + finalize, or on "compact" and "xla"
+    `sortmerge_step`.  k >= 32 folds wide-encoded keys.
 
     gate: None, or (bf, pre, bf_shift, bf_n_hash, exact, shard_shift) to
     run the gated create pass (htab.c:61-70) against the filter bf (a
     mesh shard's slice when shard_shift > 0); exact: through the
     serial-exact gate post (`bloom_gate_exact_post`, -X), whose ranks
-    come from a stable torch.sort, whatever `psort` says (the table
-    refuses -X on the psort engine, as yak_tpu does), and from the
-    carg's (rank, rank_bound) where a hash batch carries them.  psort: the psort
-    engine's fold, whose batch sort is the sort kernel and whose gated
-    fold takes the plain gate post (yak_tpu/table.py:414-420).
+    come from a stable torch.sort (fold_engine refuses -X on the psort
+    engine, as yak_tpu does), and from the carg's (rank, rank_bound)
+    where a hash batch carries them.  The psort engine's batch sort is
+    the sort kernel and its gated fold takes the plain gate post
+    (yak_tpu/table.py:414-420).
 
     Returns (keys, cnt, size, n_new, overflow, bf', undo): the new table
     truncated to cap, its live size min(new_size, cap), the created-key
@@ -149,6 +220,10 @@ def count_step(carg, k, tkeys, tcnt, size, create, gate=None, hook=None,
     updated filter and the undo record that `bloom.rollback` turns back
     into the pre-fold filter (else None, None).  `hook`, when given, is
     called with each phase's name as the phase is queued."""
+    if engine in ("compact", "xla"):
+        return sortmerge_step(carg, k, tkeys, tcnt, size, create, gate,
+                              hook, engine == "compact")
+    psort = engine == "psort"
     mark = hook or (lambda _name: None)
     wide = k > 31
     exact = gate is not None and gate[4]
@@ -161,8 +236,7 @@ def count_step(carg, k, tkeys, tcnt, size, create, gate=None, hook=None,
     mark("sort")
     weights = bf = undo = None
     if exact:
-        rank, rank_bound = (carg[2] if carg[0] == "hashes" and len(carg) > 2
-                            else (None, None))
+        rank, rank_bound = _carried_rank(carg)
         weights, bf, undo = bloom_gate_exact_post(
             bkeys, perm, *gate[:4], wide=wide, shard_shift=gate[5],
             rank=rank, rank_bound=rank_bound)
@@ -178,6 +252,101 @@ def count_step(carg, k, tkeys, tcnt, size, create, gate=None, hook=None,
     out = finalize(okeys, ocnt, new_size, n_new, tkeys.shape[0])
     mark("finalize")
     return out + (bf, undo)
+
+
+def _carried_rank(carg):
+    """(rank, rank_bound) of a hash batch that carries its lanes' serial
+    ranks, else (None, None)."""
+    return carg[2] if carg[0] == "hashes" and len(carg) > 2 else (None, None)
+
+
+def sortmerge_step(carg, k, tkeys, tcnt, size, create, gate=None, hook=None,
+                   compact_kernel=False):
+    """One fold of the sort-merge engines (get_count_step,
+    yak_tpu/ops/countstep.py:119-165): extract [+ `gate_batch`] + the
+    sort-merge of the table and the batch.  "xla" (compact_kernel
+    False) closes the merged stream up by its compaction sort
+    (`sorttable.merge_batch`); "compact" takes the stream as it is
+    (`sorttable.merge_stream`, k <= 31) and closes it up by the
+    compaction kernel (`compact.compact`, which on a CUDA tensor
+    launches csrc/compact.cu or raises), then `finalize_compacted`
+    (yak_tpu/table.py:471-477).  Arguments and result as count_step;
+    the hook's phases are "extract", "gate", "merge", "compact" (the
+    compact engine) and "finalize"."""
+    mark = hook or (lambda _name: None)
+    wide = k > 31
+    h, valid = extract(carg, k)
+    keys = torch.where(valid, encode_wide(h) if wide else h,
+                       INT64_MAX).reshape(-1)
+    mark("extract")
+    bf = undo = None
+    if gate is not None:
+        rank, rank_bound = _carried_rank(carg)
+        keys, starts, add, bf, undo = gate_batch(
+            keys, *gate[:5], wide=wide, shard_shift=gate[5], rank=rank,
+            rank_bound=rank_bound)
+        valid = starts & (add > 0)
+        mark("gate")
+    else:
+        valid = keys != INT64_MAX
+        add = torch.ones(keys.shape, dtype=torch.int32, device=keys.device)
+    cap = tkeys.shape[0]
+    if compact_kernel:
+        khi, klo, v, size2, n_new, ovf = st.merge_stream(
+            tkeys, tcnt, size, keys, add, valid, create)
+        mark("merge")
+        ohi, olo, ov, _n = compact.compact(khi, klo, v)
+        mark("compact")
+        okeys, ocnt = finalize_compacted(ohi, olo, ov, cap)
+    else:
+        okeys, ocnt, size2, n_new, ovf = st.merge_batch(
+            tkeys, tcnt, size, keys, add, valid, create)
+        mark("merge")
+    mark("finalize")
+    return okeys, ocnt, size2, n_new, ovf, bf, undo
+
+
+def finalize_compacted(khi, klo, v, cap):
+    """The compacted planes -> table state (keys int64 [cap], cnt int32
+    [cap]) (countstep.finalize_compacted): the first cap lanes, khi and
+    klo joined back into int64 keys.  Truncation to cap is safe: the
+    caller reads the merge's overflow flag."""
+    keys = (khi[:cap].to(torch.int64) << 32) | (klo[:cap].to(torch.int64)
+                                               & U32_MASK)
+    return keys, v[:cap].contiguous()
+
+
+def gate_batch(keys, bf, pre, bf_shift, bf_n_hash, exact, wide=False,
+               shard_shift=0, rank=None, rank_bound=None):
+    """Dedup a fold's key batch and run the Bloom create gate
+    (_gate_batch, yak_tpu/ops/countstep.py:84-117, htab.c:61-70), as
+    the sort-merge engines gate: `sorttable.dedup`, then one
+    `bloom.bloom_insert` of the run starts (the raw hash: wide keys are
+    decoded first).  The cheap gate sees the filter as it was before
+    the fold; the exact one (-X) takes each key's serial rank, the lane
+    of its first occurrence in the flat batch (the chunks in order,
+    each chunk's windows in base order: `_serial_rank`'s plain base
+    position), or the least of `rank` (int [B], below rank_bound) over
+    its lanes where a batch carries them.
+
+    Returns (hs, starts, add, bf', undo): the sorted keys, the run
+    starts, at each start the run's weight (its length, less one where
+    its probed bits were not all set), and bloom_insert's filter and
+    undo record; the merge takes valid = starts & (add > 0)."""
+    n = keys.numel()
+    if exact:
+        hs, starts, mult, rk = st.dedup(keys, rank, with_rank=True)
+        ranked = dict(rank=rk, rank_bound=rank_bound if rank is not None
+                      else n)
+    else:
+        hs, starts, mult = st.dedup(keys)
+        ranked = {}
+    bf2, n_before, undo = bloom.bloom_insert(
+        bf, decode_wide(hs) if wide else hs, starts, pre=pre,
+        n_shift=bf_shift, n_hashes=bf_n_hash, shard_shift=shard_shift,
+        **ranked)
+    add = torch.where(n_before == bf_n_hash, mult, mult - 1)
+    return hs, starts, add.to(torch.int32), bf2, undo
 
 
 def finalize(okeys, ocnt, new_size, n_new, cap):
@@ -302,10 +471,13 @@ def run_bloom_gate_post(bkeys, bf, pre, bf_shift, bf_n_hash, wide=False,
                         shard_shift=0):
     """The gated fold's post (countstep.run_bloom_gate_post): the
     sentinel post where the filter (or a mesh shard's slice of it) fits
-    (up to 2^30 bits), else the plain post, whose sparse tail serves the
-    large filters (-b37).  Returns (weights, bf', undo)."""
+    (up to 2^30 bits) unless YAK_TPU_BLOOM_SENTINEL=0, else the plain
+    post, whose sparse tail serves the large filters (-b37).  Returns
+    (weights, bf', undo)."""
     post = (bloom_gate_sentinel_post
-            if gate_sent_fits(bf_shift, shard_shift) else bloom_gate_post)
+            if gate_sent_fits(bf_shift, shard_shift)
+            and os.environ.get("YAK_TPU_BLOOM_SENTINEL", "1") != "0"
+            else bloom_gate_post)
     return post(bkeys, bf, pre, bf_shift, bf_n_hash, wide, shard_shift)
 
 
@@ -342,12 +514,18 @@ def lookup_keys(qkeys_raw, valid, tkeys, tcnt, size, wide, psort=False,
     [B] holds raw hashes (k >= 32: the u64 bit patterns, wide-encoded
     here as the table's keys are).  The queries are sorted with their
     lane as payload (psort: through the sort kernel, else torch.sort)
-    and JOINed by the kernel, which stores each value at its lane.
-    `mark`, when given, is called with "sort" and "join" as each phase
-    is queued."""
+    and JOINed by the kernel, which stores each value at its lane; or,
+    where `join_enabled` says no (YAK_TPU_JOIN=0, YAK_TPU_PALLAS=0),
+    looked up by the sorted join (`sorttable.lookup`).  `mark`, when
+    given, is called with "sort" and "join" as each phase is queued (the
+    sorted join: "join" alone)."""
     mark = mark or (lambda _name: None)
     keys = torch.where(valid, encode_wide(qkeys_raw) if wide else qkeys_raw,
                        INT64_MAX)
+    if not join_enabled():
+        vals = st.lookup(tkeys, tcnt, size, keys)
+        mark("join")
+        return vals
     if psort:
         lane = torch.arange(keys.numel(), dtype=torch.int32,
                             device=keys.device)
@@ -475,6 +653,101 @@ def qv_join_post(vals, valid, meta, state, ns, M, min_frac, emit_ek,
     return r
 
 
+# payload of an invalid query lane in the seg-payload join: its post key
+# sorts above every real seg << 11 | v (seg ids stay below 2^21 - 1; ns
+# never exceeds 2^20)
+SEG_INVALID = (1 << 21) - 1
+
+
+def seg_of_lane(bounds, ns, M):
+    """Each lane's segment id from the qv meta row's bounds (the first
+    window lane of each segment, clipped to M) (_seg_of_lane): ones
+    added at the interior bounds, then a running sum."""
+    bc = torch.clamp(bounds[1:ns + 1], 0, M).to(torch.int64)
+    d = torch.zeros(M + 1, dtype=torch.int32, device=bounds.device)
+    d.index_add_(0, bc, torch.ones_like(bc, dtype=torch.int32))
+    return torch.cumsum(d[:M], 0, dtype=torch.int32)
+
+
+def qv_lookup_seg(carg, k, tkeys, tcnt, size, meta, ns, hook=None):
+    """The seg-payload JOIN of one qv chunk (get_qv_join_pre_seg and its
+    kernel call, YAK_TPU_QV_SEG=1, k <= 31): extract, the queries sorted
+    by torch.sort with each one's segment id (SEG_INVALID for invalid
+    lanes) riding along, and the JOIN kernel with the identity as its
+    store lanes, so the values stay in ascending key order beside their
+    segments.  Returns (vals int32 [M], seg int32 [M]) in that order,
+    for `qv_join_post_seg`.  `hook` marks "extract", "sort", "join"."""
+    mark = hook or (lambda _name: None)
+    h, valid = extract(carg, k)
+    h, valid = h.reshape(-1), valid.reshape(-1)
+    mark("extract")
+    M = h.numel()
+    seg = torch.where(valid, seg_of_lane(meta, ns, M), SEG_INVALID)
+    qkeys, order = torch.sort(torch.where(valid, h, INT64_MAX))
+    mark("sort")
+    lane = torch.arange(M, dtype=torch.int32, device=h.device)
+    vals = merge.merge_join(tkeys, tcnt, size, qkeys, lane)
+    mark("join")
+    return vals, seg[order]
+
+
+def _seg_hist(k2, ej, j):
+    """One segment's occurrence histogram from the sorted seg << 11 | v
+    key (_seg_hist): bin 0 counts v in {0, 1} (absent and count 0), bin
+    t counts v == t + 1.  j int64 [1], so no value is read back to the
+    host."""
+    probes = (j << 11) + torch.arange(2, 1026, dtype=torch.int64,
+                                      device=k2.device)
+    edges = torch.searchsorted(k2, probes)
+    return torch.diff(torch.cat([ej.index_select(0, j), edges]))
+
+
+def qv_join_post_seg(vals, seg, meta, state, ns, M, min_frac):
+    """The qv post of one chunk from the seg-payload JOIN
+    (get_qv_join_post_seg with _seg_sorted_vals and _seg_edges,
+    yak_tpu/ops/countstep.py:1529-1656): one sort of seg << 11 | v + 1
+    restores the grouping, each segment's total and nonzero count and
+    the head and tail histograms are searchsorted edges, and the gated
+    histogram one narrow sort of the gated lanes' values.  Returns (cnt,
+    c_tot, c_non0, c_hist, tot, non0), as qv_join_post without -E."""
+    dev = vals.device
+    k2 = torch.sort((seg.to(torch.int64) << 11)
+                    | (vals + 1).to(torch.int64)).values
+    sj = torch.arange(ns + 1, dtype=torch.int64, device=dev) << 11
+    ej = torch.searchsorted(k2, sj)
+    e2 = torch.searchsorted(k2, sj[:-1] | 2)
+    tot = (ej[1:] - ej[:-1]).to(torch.int32)
+    non0 = (ej[1:] - e2).to(torch.int32)
+    elig = meta[ns + 1:2 * ns + 1] != 0
+    head_end = meta[2 * ns + 1]
+    inc_start = meta[2 * ns + 2]
+    j_inc = meta[2 * ns + 3:2 * ns + 4].to(torch.int64)
+    gate = (non0.to(torch.float64) >= tot.to(torch.float64) * min_frac) \
+        & elig
+    # the head region [0, head_end) is exactly seg 0, the tail region
+    # [inc_start, M) exactly seg j_inc
+    has_head = head_end > 0
+    has_inc = inc_start < M
+    hh = torch.where(has_head, _seg_hist(k2, ej, j_inc.new_zeros(1)), 0)
+    hi_ = torch.where(has_inc, _seg_hist(k2, ej, j_inc), 0)
+    ji = torch.arange(ns, dtype=torch.int64, device=dev)
+    g_hg = gate & ~(has_head & (ji == 0)) & ~(has_inc & (ji == j_inc))
+    # the gate expanded to the sorted stream's lanes: deltas at the seg
+    # starts (the last closes the invalid tail), a running sum
+    gi = torch.cat([g_hg.to(torch.int32),
+                    torch.zeros(1, dtype=torch.int32, device=dev)])
+    gd = gi - torch.cat([gi.new_zeros(1), gi[:-1]])
+    d = torch.zeros(M + 1, dtype=torch.int32, device=dev)
+    d.index_add_(0, ej, gd)
+    glx = torch.cumsum(d[:M], 0, dtype=torch.int32) > 0
+    k3 = torch.sort(torch.where(glx, k2 & 0x7FF, 2048)).values
+    hedges = torch.searchsorted(k3, torch.arange(2, 1026, dtype=torch.int64,
+                                                 device=dev))
+    hg = torch.diff(torch.cat([hedges.new_zeros(1), hedges]))
+    return qv_fold_step(state, meta, hg, hi_, hh, tot, non0, ns,
+                        min_frac) + (tot, non0)
+
+
 def chkerr_mark_mid(vals, valid, min_cnt, M):
     """chkerr's run markers as planes for the compaction
     (countstep.get_chkerr_mark_mid): a lane is low when its window is
@@ -503,13 +776,33 @@ def run_mark_compact(khi, pay):
     return ohi, opay
 
 
-def run_marker_sort(khi, pay):
+def run_marker_sort(khi, pay, kernel=True):
     """The psort engine's marker step (countstep.get_chkerr_psort_mid's
     planes through run_marker_psort), in place of run_mark_compact: key =
     the run-end lane where khi keeps one, else INT32_MAX, payload = the
-    run length, one sort through the kernel.  Returns (lanes, payloads)
-    int32 [M], the markers first in lane order, as run_mark_compact."""
-    return sort.sort(torch.where(khi >= 0, khi, INT32_MAX), pay)
+    run length, one sort through the kernel; without `kernel`, one
+    torch.sort (the full-lane marker sort of the JAX package's non-JOIN
+    and MARK_COMPACT=0 steps, get_chkerr_step, get_trioeval_join_post).
+    Returns (lanes, payloads) int32 [M], the markers first in lane
+    order, as run_mark_compact."""
+    key = torch.where(khi >= 0, khi, INT32_MAX)
+    if kernel:
+        return sort.sort(key, pay)
+    lanes, order = torch.sort(key)
+    return lanes, pay[order]
+
+
+def marker_step(psort, diff=False):
+    """The marker step of chkerr and trioeval (run markers) or triobin -p
+    (`diff`) for a run: through the sort kernel under psort, else by the
+    compaction kernel where `mark_compact_enabled`, else by one
+    torch.sort."""
+    if psort:
+        return run_diff_sort if diff else run_marker_sort
+    if mark_compact_enabled():
+        return run_mark_compact
+    return (lambda khi, pay: (run_diff_sort if diff else run_marker_sort)(
+        khi, pay, kernel=False))
 
 
 # -- trio binning and evaluation -------------------------------------------
@@ -530,24 +823,6 @@ def trio_types(vals, valid):
     typ = torch.where(valid & (c1 == 2) & (c2 == 0), 1,
                       torch.where(valid & (c2 == 2) & (c1 == 0), 2, 0))
     return flag, typ.to(torch.int32)
-
-
-def last_set_lane(mask):
-    """For each lane i, the last lane j <= i where `mask` is set, else -1
-    (int32 [M]): `torch.cummax(torch.where(mask, lane, -1))`, which
-    the JAX package computes (`jax.lax.cummax`), without torch.cummax,
-    whose CUDA kernel scans a 1-D tensor in one block (22.3 ms against
-    0.54 ms at 8,388,578 lanes on an H100, tools/trio_post_probe.py).
-    The set lanes are numbered by a cumsum, each writes its lane at its
-    number (the other lanes write to 1024 spare slots that nothing
-    reads), and each lane reads back the lane of its number."""
-    n = mask.numel()
-    lane = torch.arange(n, dtype=torch.int32, device=mask.device)
-    num = torch.cumsum(mask, 0, dtype=torch.int32)
-    slot = torch.where(mask, num, n + 1 + (lane & 1023)).to(torch.int64)
-    pos = torch.full((n + 1025,), -1, dtype=torch.int32, device=mask.device)
-    pos.scatter_(0, slot, lane)
-    return pos[num.to(torch.int64)]
 
 
 def _type_runs(typ):
@@ -612,13 +887,15 @@ def triobin_diff_mid(flag, valid, M):
             dm.sum(dtype=torch.int32))
 
 
-def run_diff_sort(khi, pay):
+def run_diff_sort(khi, pay, kernel=True):
     """The psort engine's -p marker step (get_triobin_psort_mid's plane
     through run_marker_psort1), in place of run_mark_compact: one sort of
     `lane << 4 | flag` keys, INT32_MAX where khi drops the lane, through
-    the kernel.  Returns (lanes, flags) int32 [M], the markers first in
-    lane order, as run_mark_compact."""
-    keys = sort.sort(torch.where(khi >= 0, (khi << 4) | pay, INT32_MAX))[0]
+    the kernel, or without `kernel` one torch.sort (the JAX package's
+    triobin steps sort these keys in XLA).  Returns (lanes, flags) int32
+    [M], the markers first in lane order, as run_mark_compact."""
+    key = torch.where(khi >= 0, (khi << 4) | pay, INT32_MAX)
+    keys = sort.sort(key)[0] if kernel else torch.sort(key).values
     return keys >> 4, keys & 15
 
 

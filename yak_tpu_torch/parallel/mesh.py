@@ -16,9 +16,12 @@ A group of up to D chunks is dealt one chunk a shard, and each shard
 extracts its chunk's hashes on its own device.  Every valid hash goes
 to its owner shard (`_route`), whose table folds the batch
 (`table.KmerTable.fold_hashes`: the batch sort, `torch.sort` or under
-psort the sort kernel, then the merge-reduce kernel) or JOINs it
+psort the sort kernel, then the merge-reduce kernel; or the engine that
+`countstep.fold_engine` names, YAK_TPU_ENGINE=compact|xla,
+YAK_TPU_WIDE=0 or YAK_TPU_PALLAS=0 on every shard) or JOINs it
 (`countstep.lookup_keys`: the sort with the lane as payload, then the
-JOIN, which stores each value at its lane); a lookup's values go back
+JOIN, which stores each value at its lane; the sorted join where the
+JOIN is off); a lookup's values go back
 to the lanes they came from by the slot each lane was sent from
 (`_route_back`).  These per-shard launches take the place of
 `yak_tpu`'s shard_mapped kernels: `merge_reduce_presorted_mesh`

@@ -23,11 +23,12 @@ the update built a new one (up to -b30), or the old values of the words
 an in-place update touched (larger filters: a copy of a -b37 filter
 would take 16 GiB).
 
-Each fold takes the default engine (`torch.sort` batch sort) or, opted
-in with YAK_TPU_PSORT=1 or YAK_TPU_ENGINE=psort
-(`ops/countstep.psort_enabled`, read at each fold), the psort engine
-(the batch sort through the sort kernel); the one-fold-late replay
-re-runs a fold on the engine it took.
+Each fold takes the engine `ops/countstep.fold_engine` names, read at
+each fold as yak_tpu's `_pallas_mode` reads it: the default (pmerge,
+`torch.sort` batch sort and the merge-reduce kernel), psort (the batch
+sort through the sort kernel), compact (the sort-merge's merged stream
+closed up by the compaction kernel) or xla (the sort-merge in plain
+torch); the one-fold-late replay re-runs a fold on the engine it took.
 
 The lookup workloads (qv, chkerr, triobin, trioeval) read `keys`, `cnt`
 and `size` after `flush` and JOIN their queries against them
@@ -42,7 +43,9 @@ merge-reduce in count mode; `subtract` and `isec` JOIN the table's own
 keys, already ascending, against `other` and compact the survivors.
 
 With `bf_exact` (-X), the gated folds and raw hash batches take the
-serial-exact gate (`countstep.bloom_gate_exact_post`), whose pass-1 key
+serial-exact gate (`countstep.bloom_gate_exact_post` on the default
+engine, `countstep.gate_batch` on the sort-merge engines and for raw
+hash batches), whose pass-1 key
 set is the reference's bit for bit even when pass 2 reads another file;
 a fold whose packed rank key would not fit refuses before it runs
 (`_warn_exact_gate`), as does the psort engine, which has no such gate.
@@ -55,7 +58,6 @@ The TPU package's transient-fault retry (`yak_tpu/table.py:493-502`) is
 deliberately absent: on the card it would hide a fault.
 """
 
-import os
 import sys
 
 import numpy as np
@@ -256,12 +258,11 @@ class KmerTable:
     def fold_hashes(self, h, valid, create_new=True, rank=None,
                     rank_bound=None):
         """Fold one batch of raw hashes (int64 [B] on the table's device;
-        k >= 32 the u64 bit patterns) with its validity (bool [B]) through
-        the kernel engine, as a fold of code chunks goes: the previous
-        fold settled one fold late, the capacity prior, the engine that
-        `countstep.psort_enabled` names, the batch kept for an overflow
-        replay.  create_new=False increments existing keys only
-        (htab.c:71-75).  This is how a shard of a `parallel.mesh.MeshTable`
+        k >= 32 the u64 bit patterns) with its validity (bool [B]), as a
+        fold of code chunks goes: the previous fold settled one fold
+        late, the capacity prior, the engine that `countstep.fold_engine`
+        names, the batch kept for an overflow replay.  create_new=False
+        increments existing keys only (htab.c:71-75).  This is how a shard of a `parallel.mesh.MeshTable`
         folds the hashes routed to it (the per-chip sort, Bloom gate and
         merge-reduce of yak_tpu's mesh count step,
         yak_tpu/parallel/mesh.py:338-426).
@@ -287,17 +288,14 @@ class KmerTable:
         `lanes` lanes after settling the previous one, and keep what an
         overflow replay needs."""
         self._check_last_step()  # one step late: previous fold settled
-        if gated and self.bf_exact:
+        exact = gated and self.bf_exact
+        if exact:
             self._warn_exact_gate(lanes, carg[2][1] if len(carg) == 3
                                   and carg[0] == "hashes" else None,
                                   self.shard_shift)
-            env = os.environ
-            if (env.get("YAK_TPU_PSORT") == "1"
-                    or env.get("YAK_TPU_ENGINE") == "psort"):
-                raise RuntimeError(
-                    "-X (byte-exact dump) requires the default engine's "
-                    "serial-exact Bloom gate; unset YAK_TPU_PSORT/"
-                    "YAK_TPU_ENGINE=psort or drop -X")
+        # the engine is read at each fold (table._pallas_mode); -X on the
+        # psort engine raises here
+        engine = countstep.fold_engine(self.k, gated, exact)
         # capacity prior (only without an explicit cap hint): a fold of
         # L lanes creates at most L keys and typically ~L/2 distinct
         if not self._cap_hinted and self.cap * 2 < lanes:
@@ -305,17 +303,14 @@ class KmerTable:
             self.keys, self.cnt, self.size = st.grow(
                 self.keys, self.cnt, self.size, need)
         prev = (self.keys, self.cnt, self.size)
-        # the engine is read at each fold (table._pallas_mode)
-        psort = countstep.psort_enabled(fold=True, gated=gated,
-                                        wide=self.wide)
-        ovf, undo = self._run_step(carg, prev, gated, psort)
-        self._last_step = (prev, carg, ovf, undo, psort)
+        ovf, undo = self._run_step(carg, prev, gated, engine)
+        self._last_step = (prev, carg, ovf, undo, engine)
 
-    def _run_step(self, carg, state, gated, psort):
+    def _run_step(self, carg, state, gated, engine):
         """Queue one fold against `state` (keys, cnt, size), through the
-        Bloom gate when `gated`, on the psort engine when `psort`; leaves
-        the result in self.* (and the filter in self.bf); returns the
-        device overflow flag and the filter's undo record (None when
+        Bloom gate when `gated`, on `engine` (`countstep.fold_engine`);
+        leaves the result in self.* (and the filter in self.bf); returns
+        the device overflow flag and the filter's undo record (None when
         ungated)."""
         keys, cnt, size = state
         gate = ((self.bf, self.pre, self.bf_shift, self.bf_n_hash,
@@ -323,7 +318,7 @@ class KmerTable:
         (self.keys, self.cnt, self.size, _n_new, ovf, bf,
          undo) = countstep.count_step(carg, self.k, keys, cnt, size,
                                       self._pend_create, gate=gate,
-                                      hook=self.phase_hook, psort=psort)
+                                      hook=self.phase_hook, engine=engine)
         if gated:
             self.bf = bf
         return ovf, undo
@@ -340,7 +335,7 @@ class KmerTable:
         its table inputs, so that state is intact)."""
         if self._last_step is None:
             return
-        prev, carg, ovf, undo, psort = self._last_step
+        prev, carg, ovf, undo, engine = self._last_step
         self._last_step = None
         while bool(ovf):
             keys, cnt, size = prev
@@ -350,7 +345,7 @@ class KmerTable:
             gated = undo is not None
             if gated:
                 self.bf = bloom.rollback(self.bf, undo)
-            ovf, undo = self._run_step(carg, prev, gated, psort)
+            ovf, undo = self._run_step(carg, prev, gated, engine)
 
     def insert_hashes(self, h, valid, create_new=True):
         """Count a raw (duplicate-bearing) int64 hash batch into the table
@@ -361,24 +356,19 @@ class KmerTable:
 
         Through a live filter, a creating batch is gated at once, as
         yak_ch_insert_list gates it (htab.c:51-78; yak_tpu/table.py:
-        545-581): sorted stably, each key run's weight is its length,
-        less one where its probed bits were not all set, by the plain
-        gate post or, with bf_exact, the serial-exact one, whose rank is
-        the batch lane of the key's first occurrence (the caller's order
-        is the serial order)."""
+        545-581), by `countstep.gate_batch`: each key run's weight is
+        its length, less one where its probed bits were not all set;
+        with bf_exact the gate is serial-exact, a key's rank the batch
+        lane of its first occurrence (the caller's order is the serial
+        order)."""
         h, valid = h.to(self.device), valid.to(self.device)
         if self.bf is not None and create_new:
-            h, perm = countstep.sort_batch(h, valid, self.wide,
-                                           with_perm=True)
-            gate = (self.bf, self.pre, self.bf_shift, self.bf_n_hash)
-            if self.bf_exact:
-                add, self.bf, _undo = countstep.bloom_gate_exact_post(
-                    h, perm, *gate, wide=self.wide,
-                    shard_shift=self.shard_shift)
-            else:
-                add, self.bf, _undo = countstep.bloom_gate_post(
-                    h, *gate, wide=self.wide, shard_shift=self.shard_shift)
-            valid = add > 0
+            keys = torch.where(valid, encode_wide(h) if self.wide else h,
+                               INT64_MAX)
+            h, starts, add, self.bf, _undo = countstep.gate_batch(
+                keys, self.bf, self.pre, self.bf_shift, self.bf_n_hash,
+                self.bf_exact, wide=self.wide, shard_shift=self.shard_shift)
+            valid = starts & (add > 0)
         else:
             h = encode_wide(h) if self.wide else h
             add = torch.ones(h.shape, dtype=torch.int32, device=self.device)
@@ -412,7 +402,8 @@ class KmerTable:
         """int32 counts per lane of raw hashes `h` (int64; k >= 32 the u64
         bit patterns), -1 where absent or not `valid` (yak_ch_get):
         sorted and JOINed by `countstep.lookup_keys`, on the psort
-        engine under YAK_TPU_PSORT=1."""
+        engine under YAK_TPU_PSORT=1 (by the sorted join where the JOIN
+        is off)."""
         self.flush()
         return countstep.lookup_keys(h.to(self.device),
                                      valid.to(self.device), self.keys,
@@ -529,16 +520,22 @@ class KmerTable:
         """The table's live keys, ascending, are `other`'s queries as they
         are: the lanes at or beyond size (unspecified after a
         merge-reduce) set to INT64_MAX, one JOIN with the identity as
-        their lanes and no query sort; then the survivors are compacted
-        in order."""
+        their lanes and no query sort (where the JOIN is off,
+        YAK_TPU_JOIN=0 or YAK_TPU_PALLAS=0, the sorted join
+        `sorttable.lookup`, as yak_tpu always takes here); then the
+        survivors are compacted in order."""
         self._check_same(other, "subtract/isec")
         self.flush()
         other.flush()
         lane = torch.arange(self.cap, dtype=torch.int32, device=self.device)
         live = lane < self.size
-        present = merge.merge_join(
-            other.keys, other.cnt, other.size,
-            torch.where(live, self.keys, INT64_MAX), lane) >= 0
+        qkeys = torch.where(live, self.keys, INT64_MAX)
+        if countstep.join_enabled():
+            vals = merge.merge_join(other.keys, other.cnt, other.size, qkeys,
+                                    lane)
+        else:   # yak_tpu's own lookup here (yak_tpu/table.py:611-615)
+            vals = st.lookup(other.keys, other.cnt, other.size, qkeys)
+        present = vals >= 0
         keep = present if keep_present else ~present & live
         self.keys, self.cnt, self.size = st.compact_where(
             self.keys, self.cnt, self.size, keep)

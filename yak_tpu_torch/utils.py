@@ -1,7 +1,9 @@
 """Progress lines in the reference's `[M::func::real*cpu]` shape
-(count.c:140-141, sys.c), and the lookup workloads' 2-deep pipeline
-with its copies to the host."""
+(count.c:140-141, sys.c), the lookup workloads' 2-deep pipeline with
+its copies to the host, and the YAK_TPU_PROFILE trace."""
 
+import contextlib
+import os
 import sys
 import time
 
@@ -78,3 +80,31 @@ def host_markers(planes, n, a, b, maxr):
     if n > maxr:
         a, b = planes[0][:n].cpu(), planes[1][:n].cpu()
     return a[:n].numpy().astype(np.int64), b[:n].numpy().astype(np.int64)
+
+
+@contextlib.contextmanager
+def maybe_profile(device=None):
+    """YAK_TPU_PROFILE=<dir>: a `torch.profiler` trace of the block
+    (yak_tpu/utils.py:38-64, the JAX profiler there), host activity and,
+    on a CUDA `device`, the card's, written as one Chrome trace
+    (`trace-<pid>.json`, for chrome://tracing or Perfetto) into <dir>
+    when the block ends, however it ends.  A no-op when unset."""
+    out = os.environ.get("YAK_TPU_PROFILE")
+    if not out:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if device is not None and device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    prof = profile(activities=acts)
+    try:
+        with prof:
+            yield
+    finally:
+        os.makedirs(out, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(out,
+                                              f"trace-{os.getpid()}.json"))
+        print(f"[M::yak_tpu_torch] profiler trace written to {out}",
+              file=sys.stderr)
