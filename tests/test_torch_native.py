@@ -127,16 +127,20 @@ def test_missing_file_raises(tmp_path):
 
 def test_library_built_from_the_port_copies():
     """The library sits in build/yak_tpu_torch/, named by the hash of its
-    sources and flags; the sources are the port's own files, copies of
-    yak_tpu's."""
+    sources and flags; the sources are the port's own files: khlayout.cpp
+    a copy of yak_tpu's, fastx.cpp yak_tpu's reader with its producer's
+    time counters (`yx_stats`; its chunks are held against yak_tpu's
+    reader above)."""
     assert native.available()
     path = native.library_path()
     assert path.parent == BUILD_DIR and path.exists()
     assert path.name.startswith("libyakfastx-")
     for src in native.SOURCES:
         assert src.parent == native.SRC_DIR
-        jax_src = os.path.join(ROOT, "yak_tpu", "native", src.name)
-        assert src.read_bytes() == open(jax_src, "rb").read()
+    kh = native.SRC_DIR / "khlayout.cpp"
+    jax_src = os.path.join(ROOT, "yak_tpu", "native", kh.name)
+    assert kh.read_bytes() == open(jax_src, "rb").read()
+    assert b"void yx_stats(" in (native.SRC_DIR / "fastx.cpp").read_bytes()
 
 
 def test_concurrent_builds_load(tmp_path, monkeypatch):

@@ -15,6 +15,7 @@ import os
 import sys
 from dataclasses import dataclass, replace
 
+from yak_tpu_torch import spans
 from yak_tpu_torch.io.chunks import ChunkSource
 from yak_tpu_torch.io.pack import detect_periodic_meta
 from yak_tpu_torch.table import KmerTable
@@ -64,10 +65,13 @@ def count_file(fn, opt, table=None):
                       with_meta="records")
     prog = Progress("count_file")
     for packed in src:
-        per = detect_periodic_meta(packed)
-        table.insert_codes(packed.codes, create_new=create_new,
-                           planes=getattr(packed, "planes", None),
-                           periodic=per if per else False)
+        # the host's work on a chunk (a fold, where the chunk completes a
+        # group, nests its own spans)
+        with spans.span("count.chunk"):
+            per = detect_periodic_meta(packed)
+            table.insert_codes(packed.codes, create_new=create_new,
+                               planes=getattr(packed, "planes", None),
+                               periodic=per if per else False)
         # per-chunk line (count.c:140-141 shape); the distinct-k-mer
         # figure is the last SETTLED fold (syncing here would stall)
         prog.line(f"processed {src.n_seq} sequences; {table._tot} "
@@ -117,8 +121,9 @@ def count(files, opt):
         table = count_file(files[0], replace(opt, bf_shift=0))
     else:
         table = count_file(files[0], opt)
-        table.destroy_bf()
-        table.clear_counts()
+        with spans.span("count.switch"):
+            table.destroy_bf()
+            table.clear_counts()
         count_file(files[1] if len(files) >= 2 else files[0], opt,
                    table=table)
     table.shrink(2, 1023)

@@ -40,7 +40,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from yak_tpu_torch import YAK_N_COUNTS
+from yak_tpu_torch import YAK_N_COUNTS, spans
 from yak_tpu_torch.io.chunks import ChunkSource
 from yak_tpu_torch.io.pack import pack_chunk_planes
 from yak_tpu_torch.ops import countstep
@@ -161,13 +161,14 @@ def run_qv(opt, fn, table, out=None):
         nseq = len(packed.rec_gid)
         # the carry follows the chunks to their shards' devices
         state = tuple(t.to(vals.device) for t in state)
-        if seg:    # `valid` holds each sorted value's segment
-            outs = countstep.qv_join_post_seg(vals, valid, meta_d, state,
-                                              ns, M, float(opt.min_frac))
-        else:
-            outs = countstep.qv_join_post(vals, valid, meta_d, state, ns, M,
-                                          float(opt.min_frac), want_ek,
-                                          psort=psort and not want_ek)
+        with spans.span("qv.post"):
+            if seg:    # `valid` holds each sorted value's segment
+                outs = countstep.qv_join_post_seg(vals, valid, meta_d, state,
+                                                  ns, M, float(opt.min_frac))
+            else:
+                outs = countstep.qv_join_post(vals, valid, meta_d, state, ns,
+                                              M, float(opt.min_frac), want_ek,
+                                              psort=psort and not want_ek)
         state = outs[:4]
 
         ek_txt = None
@@ -196,10 +197,11 @@ def run_qv(opt, fn, table, out=None):
 
         if opt.print_each or want_ek:
             # host mirror of totals (a sync per chunk; -p/-E modes only)
-            _qv_out_update(packed, info, outs[4].cpu().numpy(),
-                           outs[5].cpu().numpy(), h_carry, blocks,
-                           opt.min_len, k, opt.print_each, ek_txt=ek_txt,
-                           carry_ek=carry_ek)
+            with spans.span("qv.fold"):
+                _qv_out_update(packed, info, outs[4].cpu().numpy(),
+                               outs[5].cpu().numpy(), h_carry, blocks,
+                               opt.min_len, k, opt.print_each, ek_txt=ek_txt,
+                               carry_ek=carry_ek)
 
         # per-chunk progress in the reference shape (qv.c:104-106)
         prog.line(f"processed {nseq} sequences")
@@ -222,11 +224,13 @@ def _qv_lookups(fn, table, chunk, M, min_len, psort, seg=False):
     def meta(packed, dev, non_blocking):
         ns = max(1 << 12,
                  1 << int(max(len(packed.rec_gid) - 1, 1)).bit_length())
-        m, info, carry[0] = _qv_chunk_meta(packed, M, ns, carry[0], min_len)
-        m = torch.from_numpy(m)
-        if non_blocking and dev.type == "cuda":
-            m = m.pin_memory()
-        return m.to(dev, non_blocking=non_blocking), info, ns
+        with spans.span("qv.meta"):
+            m, info, carry[0] = _qv_chunk_meta(packed, M, ns, carry[0],
+                                               min_len)
+            m = torch.from_numpy(m)
+            if non_blocking and dev.type == "cuda":
+                m = m.pin_memory()
+            return m.to(dev, non_blocking=non_blocking), info, ns
 
     if isinstance(table, MeshTable):
         for group, vals, valid in mesh_routed_groups(fn, table, chunk,
@@ -240,7 +244,8 @@ def _qv_lookups(fn, table, chunk, M, min_len, psort, seg=False):
         if not len(packed.rec_gid):
             continue
         meta_d = meta(packed, dev, False)
-        carg = pack_chunk_planes(packed, dev)
+        with spans.span("qv.stage"):
+            carg = pack_chunk_planes(packed, dev)
         if seg:
             vals, valid = countstep.qv_lookup_seg(
                 carg, table.k, table.keys, table.cnt, table.size,
@@ -480,14 +485,18 @@ QV_HEADER = (
 def main_qv(opt, table, seq_fn, out=None):
     """The `qv` command body (main_qv, main.c:163-215)."""
     out = out or sys.stdout
-    hist = table.hist()
+    with spans.span("qv.hist"):
+        hist = table.hist()
     out.write(QV_HEADER)
     cnt = run_qv(opt, seq_fn, table, out=out)
-    _, qs = qv_solve(hist, cnt, table.k, opt.fpr)
-    for i in range(YAK_N_COUNTS - 1, -1, -1):
-        out.write(f"CT\t{i}\t{hist[i]}\t{cnt[i]}\t{_cf(qs.adj_cnt[i])}\n")
-    out.write(f"FR\t{_cf(qs.fpr_lower, '.3g')}\t{_cf(qs.fpr_upper, '.3g')}\n")
-    out.write(f"ER\t{qs.tot}\t{_cf(qs.err)}\n")
-    out.write(f"CV\t{_cf(qs.cov)}\n")
-    out.write(f"QV\t{_cf(qs.qv_raw)}\t{_cf(qs.qv)}\n")
+    with spans.span("qv.solve"):
+        _, qs = qv_solve(hist, cnt, table.k, opt.fpr)
+        for i in range(YAK_N_COUNTS - 1, -1, -1):
+            out.write(f"CT\t{i}\t{hist[i]}\t{cnt[i]}\t"
+                      f"{_cf(qs.adj_cnt[i])}\n")
+        out.write(f"FR\t{_cf(qs.fpr_lower, '.3g')}\t"
+                  f"{_cf(qs.fpr_upper, '.3g')}\n")
+        out.write(f"ER\t{qs.tot}\t{_cf(qs.err)}\n")
+        out.write(f"CV\t{_cf(qs.cov)}\n")
+        out.write(f"QV\t{_cf(qs.qv_raw)}\t{_cf(qs.qv)}\n")
     return qs

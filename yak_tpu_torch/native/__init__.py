@@ -2,7 +2,8 @@
 the khashl layout simulator of the byte-exact dump, bound with ctypes.
 
 Port of `yak_tpu/native/__init__.py` over the package's own copies of
-its two sources (`fastx.cpp`, `khlayout.cpp`, unchanged): `fastx.cpp`
+its two sources (`khlayout.cpp` unchanged; `fastx.cpp` with its
+producer's time counters, `yx_stats`): `fastx.cpp`
 parses FASTA/FASTQ (gzip or plain) on a background thread and packs the
 fixed-shape chunks of `io/pack.py`, bit planes included, while the
 device folds the previous ones (`NativePackReader`, what
@@ -30,6 +31,7 @@ from pathlib import Path
 
 import numpy as np
 
+from yak_tpu_torch import spans
 from yak_tpu_torch.ops.cuda_build import BUILD_DIR
 
 SRC_DIR = Path(__file__).resolve().parent
@@ -74,7 +76,8 @@ def build():
 def _bind(lib):
     lib.yx_open.restype = ctypes.c_void_p
     lib.yx_open.argtypes = [ctypes.c_char_p, ctypes.c_long, ctypes.c_int,
-                            ctypes.c_long, ctypes.c_int, ctypes.c_int]
+                            ctypes.c_long, ctypes.c_int, ctypes.c_int,
+                            ctypes.c_int]
     lib.yx_next.restype = ctypes.c_long
     lib.yx_next.argtypes = [ctypes.c_void_p]
     for name, res in [("yx_codes", ctypes.POINTER(ctypes.c_uint8)),
@@ -94,6 +97,8 @@ def _bind(lib):
         [ctypes.POINTER(ctypes.c_int64)] * 5
     lib.yx_n_seq.restype = ctypes.c_int64
     lib.yx_n_seq.argtypes = [ctypes.c_void_p]
+    lib.yx_stats.restype = None
+    lib.yx_stats.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int64)]
     lib.yx_close.restype = None
     lib.yx_close.argtypes = [ctypes.c_void_p]
     # the khashl layout simulator (khlayout.cpp)
@@ -282,7 +287,17 @@ class NativePackReader:
     min_len: drop records shorter than this before packing (count.c:94's
     `l < k` skip; 0 keeps every record).  with_meta: False (codes and
     planes only), "records" (the rec_* arrays, names and lengths) or
-    True (also the per-position seq_id and pos)."""
+    True (also the per-position seq_id and pos).
+
+    Its start (`reader.open`: the file opened, the producer thread
+    started) and its waits are spans (`reader.fill`: the first chunk's,
+    `reader.wait`: each later one's, `reader.copy`: a chunk's copies out
+    of the native buffers); a reader opened while spans are on
+    (`spans.enabled()`) also counts its producer's time, which `close`
+    adds to the counters `reader.input_s` (in gzread), `reader.pack_s`
+    (packing the planes), `reader.full_s` (blocked on a full queue),
+    `reader.parse_s` (the rest of the producer thread's life) and
+    `reader.empty_s` (the consumer blocked on an empty queue)."""
 
     def __init__(self, path, chunk_size, k, min_len=0, with_meta=True,
                  n_buf=4):
@@ -294,9 +309,13 @@ class NativePackReader:
         self._level = 0 if not with_meta else (
             1 if with_meta == "records" else 2)
         self._n_seq = 0
+        self._stats = spans.enabled()
+        self._wait = "reader.fill"
         p = "-" if path in (None, "-") else str(path)
-        self._h = lib.yx_open(p.encode(), self._chunk_size, int(k),
-                              int(min_len), self._level, int(n_buf))
+        with spans.span("reader.open"):
+            self._h = lib.yx_open(p.encode(), self._chunk_size, int(k),
+                                  int(min_len), self._level, int(n_buf),
+                                  int(self._stats))
         if not self._h:
             raise FileNotFoundError(p)
 
@@ -307,10 +326,16 @@ class NativePackReader:
         if self._h is None:
             raise StopIteration
         lib, h = self._lib, self._h
-        n = lib.yx_next(h)
+        with spans.span(self._wait):
+            n = lib.yx_next(h)
+        self._wait = "reader.wait"
         if n < 0:
             self.close()
             raise StopIteration
+        with spans.span("reader.copy"):
+            return self._copy(lib, h, n)
+
+    def _copy(self, lib, h, n):
         c = _NativeChunk()
         c.n_bases = int(n)
         cs = self._chunk_size
@@ -352,8 +377,19 @@ class NativePackReader:
     def close(self):
         if getattr(self, "_h", None) is not None:
             self._n_seq = int(self._lib.yx_n_seq(self._h))
+            if self._stats:
+                self._count_stats()
             self._lib.yx_close(self._h)
             self._h = None
+
+    def _count_stats(self):
+        ns = (ctypes.c_int64 * 5)()
+        self._lib.yx_stats(self._h, ns)
+        inp, pack, full, empty, life = (v / 1e9 for v in ns)
+        for name, v in (("input", inp), ("pack", pack), ("full", full),
+                        ("parse", life - inp - pack - full),
+                        ("empty", empty)):
+            spans.count(f"reader.{name}_s", v)
 
     def __del__(self):
         self.close()

@@ -22,6 +22,7 @@
 #include <zlib.h>
 
 #include <atomic>
+#include <chrono>
 #include <condition_variable>
 #include <cstdint>
 #include <cstring>
@@ -49,6 +50,37 @@ struct Nt4 {
     }
 };
 const Nt4 NT4;
+
+int64_t now_ns() {
+    return std::chrono::duration_cast<std::chrono::nanoseconds>(
+               std::chrono::steady_clock::now().time_since_epoch())
+        .count();
+}
+
+// Nanoseconds a reader spent, counted only when it was opened with
+// stats on (yx_open's last argument; yx_stats reads them): the producer
+// in gzread (input), in pack_planes (pack) and blocked on a full queue
+// (full), the consumer blocked on an empty one (empty), and the
+// producer thread's start and end.
+struct Stats {
+    std::atomic<int64_t> input{0}, pack{0}, full{0}, empty{0};
+    std::atomic<int64_t> start{0}, end{0};
+};
+
+// Adds the nanoseconds from its construction to its destruction to
+// `*into`; does nothing, reading no clock, when `into` is null.
+class Timed {
+  public:
+    explicit Timed(std::atomic<int64_t> *into)
+        : into_(into), t0_(into ? now_ns() : 0) {}
+    ~Timed() {
+        if (into_) into_->fetch_add(now_ns() - t0_);
+    }
+
+  private:
+    std::atomic<int64_t> *into_;
+    int64_t t0_;
+};
 
 struct Chunk {
     std::vector<uint8_t> codes;    // [chunk_size], pad = 4
@@ -80,7 +112,8 @@ struct Chunk {
 // Buffered line reader over a gzFile (gz* reads plain files too).
 class LineReader {
   public:
-    explicit LineReader(gzFile f) : f_(f), buf_(1 << 20) {}
+    LineReader(gzFile f, std::atomic<int64_t> *input_ns)
+        : f_(f), buf_(1 << 20), input_ns_(input_ns) {}
 
     // Reads one line (without trailing \r?\n) into `out`; false at EOF
     // when nothing was read.
@@ -96,7 +129,7 @@ class LineReader {
         const size_t mark = dst.size();
         for (;;) {
             if (p_ == n_) {
-                n_ = gzread(f_, buf_.data(), (unsigned)buf_.size());
+                n_ = fill();
                 p_ = 0;
                 if (n_ <= 0) return dst.size() > mark;
             }
@@ -117,7 +150,7 @@ class LineReader {
     // First char of the next line without consuming it; -1 at EOF.
     int peek() {
         if (p_ == n_) {
-            n_ = gzread(f_, buf_.data(), (unsigned)buf_.size());
+            n_ = fill();
             p_ = 0;
             if (n_ <= 0) return -1;
         }
@@ -125,8 +158,14 @@ class LineReader {
     }
 
   private:
+    long fill() {
+        Timed t(input_ns_);
+        return gzread(f_, buf_.data(), (unsigned)buf_.size());
+    }
+
     gzFile f_;
     std::vector<char> buf_;
+    std::atomic<int64_t> *input_ns_;
     long p_ = 0, n_ = 0;
 };
 
@@ -140,7 +179,8 @@ struct Record {
 // read until len(qual) >= len(seq).
 class FastxParser {
   public:
-    FastxParser(gzFile f) : lr_(f) {}
+    FastxParser(gzFile f, std::atomic<int64_t> *input_ns)
+        : lr_(f, input_ns) {}
 
     bool next(Record &rec) {
         std::string &line = line_;   // member: capacity reused per record
@@ -221,9 +261,10 @@ class FastxParser {
 class Stream {
   public:
     Stream(const char *path, long chunk_size, int k, long min_len,
-           int meta_level, int n_buf)
+           int meta_level, int n_buf, bool stats)
         : chunk_size_(chunk_size), k_(k), min_len_(min_len),
-          meta_level_(meta_level), max_queue_(n_buf < 1 ? 1 : n_buf) {
+          meta_level_(meta_level), max_queue_(n_buf < 1 ? 1 : n_buf),
+          stats_on_(stats) {
         if (!path || !strcmp(path, "-"))
             f_ = gzdopen(dup(0), "r");
         else
@@ -250,7 +291,10 @@ class Stream {
     // Pop the next chunk; nullptr at end of stream.
     std::unique_ptr<Chunk> pop() {
         std::unique_lock<std::mutex> lk(mu_);
-        cv_data_.wait(lk, [this] { return !queue_.empty() || done_; });
+        {
+            Timed t(stat(stats_.empty));
+            cv_data_.wait(lk, [this] { return !queue_.empty() || done_; });
+        }
         if (queue_.empty()) return nullptr;
         auto c = std::move(queue_.front());
         queue_.pop_front();
@@ -260,7 +304,22 @@ class Stream {
 
     int64_t n_seq() const { return n_seq_.load(); }
 
+    // out[0..4]: input, pack, full, empty and the producer's lifetime,
+    // ns (the lifetime so far while it runs); zeros with stats off.
+    void stats(int64_t *out) const {
+        const int64_t start = stats_.start.load(), end = stats_.end.load();
+        out[0] = stats_.input.load();
+        out[1] = stats_.pack.load();
+        out[2] = stats_.full.load();
+        out[3] = stats_.empty.load();
+        out[4] = start ? (end ? end : now_ns()) - start : 0;
+    }
+
   private:
+    std::atomic<int64_t> *stat(std::atomic<int64_t> &counter) {
+        return stats_on_ ? &counter : nullptr;
+    }
+
     // Pack the chunk's bit planes (identical layout to
     // io/pack.pack_planes: one spare word past the end, pad bases = N).
     // Hot path: 8 bases per u64 via the multiply-gather trick —
@@ -311,10 +370,16 @@ class Stream {
     }
 
     void emit(std::unique_ptr<Chunk> c) {
-        pack_planes(*c);
+        {
+            Timed t(stat(stats_.pack));
+            pack_planes(*c);
+        }
         std::unique_lock<std::mutex> lk(mu_);
-        cv_space_.wait(lk,
-                       [this] { return queue_.size() < max_queue_ || stop_; });
+        {
+            Timed t(stat(stats_.full));
+            cv_space_.wait(
+                lk, [this] { return queue_.size() < max_queue_ || stop_; });
+        }
         if (stop_) return;
         queue_.push_back(std::move(c));
         cv_data_.notify_one();
@@ -333,7 +398,8 @@ class Stream {
     }
 
     void produce() {
-        FastxParser parser(f_);
+        if (stats_on_) stats_.start = now_ns();
+        FastxParser parser(f_, stat(stats_.input));
         auto cur = std::make_unique<Chunk>(chunk_size_, meta_level_);
         long w = 0;
         Record rec;
@@ -388,6 +454,7 @@ class Stream {
             w += 1;  // one separator cell (already code 4)
         }
         if (cur->n_bases > 0 && !stop_) emit(std::move(cur));
+        if (stats_on_) stats_.end = now_ns();
         {
             std::lock_guard<std::mutex> g(mu_);
             done_ = true;
@@ -400,6 +467,8 @@ class Stream {
     const long min_len_;
     const int meta_level_;
     const size_t max_queue_;
+    const bool stats_on_;
+    Stats stats_;
 
     gzFile f_ = nullptr;
     bool ok_ = false;
@@ -421,10 +490,10 @@ struct Handle {
 extern "C" {
 
 void *yx_open(const char *path, long chunk_size, int k, long min_len,
-              int meta_level, int n_buf) {
+              int meta_level, int n_buf, int stats) {
     auto h = std::make_unique<Handle>();
     h->stream = std::make_unique<Stream>(path, chunk_size, k, min_len,
-                                         meta_level, n_buf);
+                                         meta_level, n_buf, stats != 0);
     if (!h->stream->ok()) return nullptr;
     return h.release();
 }
@@ -467,6 +536,8 @@ const char *yx_meta_names(void *hp) {
 }
 
 int64_t yx_n_seq(void *hp) { return ((Handle *)hp)->stream->n_seq(); }
+
+void yx_stats(void *hp, int64_t *out) { ((Handle *)hp)->stream->stats(out); }
 
 void yx_close(void *hp) { delete (Handle *)hp; }
 

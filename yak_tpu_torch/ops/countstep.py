@@ -48,6 +48,11 @@ the weighted merge drops the runs of weight 0 that the table lacks.
 The step never writes into its inputs, so the caller keeps the pre-step
 table and can replay the fold after growing it (`table.KmerTable`).
 
+Each phase of a fold or a lookup is a span (`spans.py`: `fold.extract`,
+`fold.sort`, `fold.gate`, `fold.merge`, `fold.compact`, `fold.finalize`,
+`lookup.extract`, `lookup.sort`, `lookup.join`, and `gate.post` inside
+`run_bloom_gate_post`), whose end calls the caller's phase hook.
+
 The lookup steps port `run_join_lookup` with `get_qv_join_pre`, the qv
 reduction (`_qv_chunk_stats`, `_qv_fold_step`, `_qv_reduce`,
 `_qv_ek_markers`, `get_qv_join_post`), the chkerr marker mid with its
@@ -71,7 +76,7 @@ import os
 
 import torch
 
-from yak_tpu_torch import YAK_MAX_COUNT
+from yak_tpu_torch import YAK_MAX_COUNT, spans
 from yak_tpu_torch.ops import bloom, compact, merge, sort
 from yak_tpu_torch.ops import sorttable as st
 from yak_tpu_torch.ops.keys import (INT64_MAX, U32_MASK, decode_wide,
@@ -219,38 +224,38 @@ def count_step(carg, k, tkeys, tcnt, size, create, gate=None, hook=None,
     count and the device overflow flag new_size > cap; with a gate, the
     updated filter and the undo record that `bloom.rollback` turns back
     into the pre-fold filter (else None, None).  `hook`, when given, is
-    called with each phase's name as the phase is queued."""
+    called with each phase's name as the phase (the span `fold.<name>`)
+    is queued."""
     if engine in ("compact", "xla"):
         return sortmerge_step(carg, k, tkeys, tcnt, size, create, gate,
                               hook, engine == "compact")
     psort = engine == "psort"
-    mark = hook or (lambda _name: None)
     wide = k > 31
     exact = gate is not None and gate[4]
-    h, valid = extract(carg, k)
-    mark("extract")
-    if exact:
-        bkeys, perm = sort_batch(h, valid, wide, with_perm=True)
-    else:
-        bkeys = sort_batch(h, valid, wide, psort)
-    mark("sort")
+    with spans.span("fold.extract", hook):
+        h, valid = extract(carg, k)
+    with spans.span("fold.sort", hook):
+        if exact:
+            bkeys, perm = sort_batch(h, valid, wide, with_perm=True)
+        else:
+            bkeys = sort_batch(h, valid, wide, psort)
     weights = bf = undo = None
     if exact:
         rank, rank_bound = _carried_rank(carg)
-        weights, bf, undo = bloom_gate_exact_post(
-            bkeys, perm, *gate[:4], wide=wide, shard_shift=gate[5],
-            rank=rank, rank_bound=rank_bound)
-        mark("gate")
+        with spans.span("fold.gate", hook):
+            weights, bf, undo = bloom_gate_exact_post(
+                bkeys, perm, *gate[:4], wide=wide, shard_shift=gate[5],
+                rank=rank, rank_bound=rank_bound)
     elif gate is not None:
         post = bloom_gate_post if psort else run_bloom_gate_post
-        weights, bf, undo = post(bkeys, *gate[:4], wide=wide,
-                                 shard_shift=gate[5])
-        mark("gate")
-    okeys, ocnt, new_size, n_new = merge.merge_reduce(
-        tkeys, tcnt, size, bkeys, create, weights=weights, wide=wide)
-    mark("merge")
-    out = finalize(okeys, ocnt, new_size, n_new, tkeys.shape[0])
-    mark("finalize")
+        with spans.span("fold.gate", hook):
+            weights, bf, undo = post(bkeys, *gate[:4], wide=wide,
+                                     shard_shift=gate[5])
+    with spans.span("fold.merge", hook):
+        okeys, ocnt, new_size, n_new = merge.merge_reduce(
+            tkeys, tcnt, size, bkeys, create, weights=weights, wide=wide)
+    with spans.span("fold.finalize", hook):
+        out = finalize(okeys, ocnt, new_size, n_new, tkeys.shape[0])
     return out + (bf, undo)
 
 
@@ -273,36 +278,39 @@ def sortmerge_step(carg, k, tkeys, tcnt, size, create, gate=None, hook=None,
     (yak_tpu/table.py:471-477).  Arguments and result as count_step;
     the hook's phases are "extract", "gate", "merge", "compact" (the
     compact engine) and "finalize"."""
-    mark = hook or (lambda _name: None)
     wide = k > 31
-    h, valid = extract(carg, k)
-    keys = torch.where(valid, encode_wide(h) if wide else h,
-                       INT64_MAX).reshape(-1)
-    mark("extract")
+    with spans.span("fold.extract", hook):
+        h, valid = extract(carg, k)
+        keys = torch.where(valid, encode_wide(h) if wide else h,
+                           INT64_MAX).reshape(-1)
     bf = undo = None
     if gate is not None:
         rank, rank_bound = _carried_rank(carg)
-        keys, starts, add, bf, undo = gate_batch(
-            keys, *gate[:5], wide=wide, shard_shift=gate[5], rank=rank,
-            rank_bound=rank_bound)
-        valid = starts & (add > 0)
-        mark("gate")
+        with spans.span("fold.gate", hook):
+            keys, starts, add, bf, undo = gate_batch(
+                keys, *gate[:5], wide=wide, shard_shift=gate[5], rank=rank,
+                rank_bound=rank_bound)
+            valid = starts & (add > 0)
     else:
         valid = keys != INT64_MAX
         add = torch.ones(keys.shape, dtype=torch.int32, device=keys.device)
     cap = tkeys.shape[0]
     if compact_kernel:
-        khi, klo, v, size2, n_new, ovf = st.merge_stream(
-            tkeys, tcnt, size, keys, add, valid, create)
-        mark("merge")
-        ohi, olo, ov, _n = compact.compact(khi, klo, v)
-        mark("compact")
-        okeys, ocnt = finalize_compacted(ohi, olo, ov, cap)
+        with spans.span("fold.merge", hook):
+            khi, klo, v, size2, n_new, ovf = st.merge_stream(
+                tkeys, tcnt, size, keys, add, valid, create)
+        with spans.span("fold.compact", hook):
+            ohi, olo, ov, _n = compact.compact(khi, klo, v)
+        with spans.span("fold.finalize", hook):
+            okeys, ocnt = finalize_compacted(ohi, olo, ov, cap)
     else:
-        okeys, ocnt, size2, n_new, ovf = st.merge_batch(
-            tkeys, tcnt, size, keys, add, valid, create)
-        mark("merge")
-    mark("finalize")
+        with spans.span("fold.merge", hook):
+            okeys, ocnt, size2, n_new, ovf = st.merge_batch(
+                tkeys, tcnt, size, keys, add, valid, create)
+        # merge_batch closed the table up: an empty finalize phase keeps
+        # the hook's sequence
+        with spans.span("fold.finalize", hook):
+            pass
     return okeys, ocnt, size2, n_new, ovf, bf, undo
 
 
@@ -478,7 +486,8 @@ def run_bloom_gate_post(bkeys, bf, pre, bf_shift, bf_n_hash, wide=False,
             if gate_sent_fits(bf_shift, shard_shift)
             and os.environ.get("YAK_TPU_BLOOM_SENTINEL", "1") != "0"
             else bloom_gate_post)
-    return post(bkeys, bf, pre, bf_shift, bf_n_hash, wide, shard_shift)
+    with spans.span("gate.post"):
+        return post(bkeys, bf, pre, bf_shift, bf_n_hash, wide, shard_shift)
 
 
 # -- lookups ------------------------------------------------------------
@@ -498,11 +507,10 @@ def lookup_chunk(carg, k, tkeys, tcnt, size, hook=None, psort=False):
     valid window's k-mer, -1 where absent; invalid lanes -1.  `hook`,
     when given, is called with each phase's name as the phase is
     queued."""
-    mark = hook or (lambda _name: None)
-    h, valid = extract(carg, k)
-    h, valid = h.reshape(-1), valid.reshape(-1)
-    mark("extract")
-    vals = lookup_keys(h, valid, tkeys, tcnt, size, k > 31, psort, mark)
+    with spans.span("lookup.extract", hook):
+        h, valid = extract(carg, k)
+        h, valid = h.reshape(-1), valid.reshape(-1)
+    vals = lookup_keys(h, valid, tkeys, tcnt, size, k > 31, psort, hook)
     return vals, valid
 
 
@@ -519,24 +527,21 @@ def lookup_keys(qkeys_raw, valid, tkeys, tcnt, size, wide, psort=False,
     looked up by the sorted join (`sorttable.lookup`).  `mark`, when
     given, is called with "sort" and "join" as each phase is queued (the
     sorted join: "join" alone)."""
-    mark = mark or (lambda _name: None)
     keys = torch.where(valid, encode_wide(qkeys_raw) if wide else qkeys_raw,
                        INT64_MAX)
     if not join_enabled():
-        vals = st.lookup(tkeys, tcnt, size, keys)
-        mark("join")
-        return vals
-    if psort:
-        lane = torch.arange(keys.numel(), dtype=torch.int32,
-                            device=keys.device)
-        qkeys, order = sort.sort(keys, lane)
-    else:
-        qkeys, order = torch.sort(keys)
-        order = order.to(torch.int32)
-    mark("sort")
-    vals = merge.merge_join(tkeys, tcnt, size, qkeys, order)
-    mark("join")
-    return vals
+        with spans.span("lookup.join", mark):
+            return st.lookup(tkeys, tcnt, size, keys)
+    with spans.span("lookup.sort", mark):
+        if psort:
+            lane = torch.arange(keys.numel(), dtype=torch.int32,
+                                device=keys.device)
+            qkeys, order = sort.sort(keys, lane)
+        else:
+            qkeys, order = torch.sort(keys)
+            order = order.to(torch.int32)
+    with spans.span("lookup.join", mark):
+        return merge.merge_join(tkeys, tcnt, size, qkeys, order)
 
 
 def _cumsum0(mask):
@@ -677,17 +682,16 @@ def qv_lookup_seg(carg, k, tkeys, tcnt, size, meta, ns, hook=None):
     store lanes, so the values stay in ascending key order beside their
     segments.  Returns (vals int32 [M], seg int32 [M]) in that order,
     for `qv_join_post_seg`.  `hook` marks "extract", "sort", "join"."""
-    mark = hook or (lambda _name: None)
-    h, valid = extract(carg, k)
-    h, valid = h.reshape(-1), valid.reshape(-1)
-    mark("extract")
+    with spans.span("lookup.extract", hook):
+        h, valid = extract(carg, k)
+        h, valid = h.reshape(-1), valid.reshape(-1)
     M = h.numel()
-    seg = torch.where(valid, seg_of_lane(meta, ns, M), SEG_INVALID)
-    qkeys, order = torch.sort(torch.where(valid, h, INT64_MAX))
-    mark("sort")
-    lane = torch.arange(M, dtype=torch.int32, device=h.device)
-    vals = merge.merge_join(tkeys, tcnt, size, qkeys, lane)
-    mark("join")
+    with spans.span("lookup.sort", hook):
+        seg = torch.where(valid, seg_of_lane(meta, ns, M), SEG_INVALID)
+        qkeys, order = torch.sort(torch.where(valid, h, INT64_MAX))
+    with spans.span("lookup.join", hook):
+        lane = torch.arange(M, dtype=torch.int32, device=h.device)
+        vals = merge.merge_join(tkeys, tcnt, size, qkeys, lane)
     return vals, seg[order]
 
 

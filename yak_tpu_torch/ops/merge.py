@@ -55,6 +55,7 @@ import functools
 
 import torch
 
+from yak_tpu_torch import spans
 from yak_tpu_torch.ops import sorttable as st
 from yak_tpu_torch.ops.keys import INT64_MAX
 
@@ -96,12 +97,14 @@ def merge_reduce(tkeys, tcnt, size, bkeys, create=True, weights=None,
         if weights.shape != bkeys.shape or weights.device != bkeys.device:
             raise ValueError("merge_reduce: weights and keys differ in "
                              "shape or device")
-    if tkeys.device.type == "cpu":
-        return merge_reduce_plain(tkeys, tcnt, size, bkeys, create, weights)
-    if tkeys.device.type != "cuda":
+    if tkeys.device.type not in ("cpu", "cuda"):
         raise ValueError(f"merge_reduce: no kernel for device "
                          f"{tkeys.device}")
-    return _launch(tkeys, tcnt, size, bkeys, create, weights, wide)
+    with spans.span("kernel.merge_reduce"):
+        if tkeys.device.type == "cpu":
+            return merge_reduce_plain(tkeys, tcnt, size, bkeys, create,
+                                      weights)
+        return _launch(tkeys, tcnt, size, bkeys, create, weights, wide)
 
 
 # kernel launches, counted in _launch: all of them, and by mode (a
@@ -207,11 +210,12 @@ def merge_join(tkeys, tcnt, size, qkeys, qidx):
     """Each sorted query's table count, or -1, in original lane order
     (contract above)."""
     _check_join(tkeys, tcnt, size, qkeys, qidx)
-    if tkeys.device.type == "cpu":
-        return merge_join_plain(tkeys, tcnt, size, qkeys, qidx)
-    if tkeys.device.type != "cuda":
+    if tkeys.device.type not in ("cpu", "cuda"):
         raise ValueError(f"merge_join: no kernel for device {tkeys.device}")
-    return _launch_join(tkeys, tcnt, size, qkeys, qidx)
+    with spans.span("kernel.merge_join"):
+        if tkeys.device.type == "cpu":
+            return merge_join_plain(tkeys, tcnt, size, qkeys, qidx)
+        return _launch_join(tkeys, tcnt, size, qkeys, qidx)
 
 
 merge_join.launches = 0    # kernel launches, counted in _launch_join

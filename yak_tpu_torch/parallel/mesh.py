@@ -69,7 +69,7 @@ from dataclasses import replace
 import numpy as np
 import torch
 
-from yak_tpu_torch import YAK_MAX_COUNT
+from yak_tpu_torch import YAK_MAX_COUNT, spans
 from yak_tpu_torch.io import yakfmt
 from yak_tpu_torch.io.chunks import ChunkSource
 from yak_tpu_torch.io.pack import pack_chunk_planes
@@ -286,17 +286,19 @@ def _groups(fn, chunk, k, n_dev, min_len=0, skip_empty=False):
         yield group
 
 
-def _extract_group(group, mesh, k, mark):
-    """Chunk i of the group packed and uploaded to mesh[i] (all of them,
-    then mark("h2d")), and extracted there: [(h int64 [M], valid bool
+def _extract_group(group, mesh, k, hook):
+    """Chunk i of the group packed and uploaded to mesh[i] (the span
+    `mesh.stage`, which hook sees as "start" and "h2d"), and extracted
+    there (`mesh.extract`, "extract"): [(h int64 [M], valid bool
     [M])]."""
-    cargs = [pack_chunk_planes(packed, dev)
-             for packed, dev in zip(group, mesh)]
-    mark("h2d")
-    out = []
-    for carg in cargs:
-        h, valid = countstep.extract(carg, k)
-        out.append((h.reshape(-1), valid.reshape(-1)))
+    with spans.span("mesh.stage", hook, opens="start", mark="h2d"):
+        cargs = [pack_chunk_planes(packed, dev)
+                 for packed, dev in zip(group, mesh)]
+    with spans.span("mesh.extract", hook):
+        out = []
+        for carg in cargs:
+            h, valid = countstep.extract(carg, k)
+            out.append((h.reshape(-1), valid.reshape(-1)))
     return out
 
 
@@ -318,6 +320,7 @@ def count_file_mesh(fn, opt, mesh, cap_log2=None, table=None, hook=None,
     With -X, a count whose serial rank key would not fit is refused
     before it starts (ValueError).  `hook`, when given, is called with
     "start", "h2d", "extract", "route" and "fold" as each group's phases
+    (the spans `mesh.stage`, `mesh.extract`, `mesh.route`, `mesh.fold`)
     are queued."""
     create = table is None if create_new is None else create_new
     chunk = _device_chunk(opt)
@@ -332,21 +335,19 @@ def count_file_mesh(fn, opt, mesh, cap_log2=None, table=None, hook=None,
         table = MeshTable(mesh, opt.k, opt.pre, cap_log2 or opt.cap_log2,
                           bf_shift=opt.bf_shift, bf_n_hash=opt.bf_n_hash,
                           bf_exact=opt.exact)
-    mark = hook or (lambda _name: None)
     route = _route if table.host is None else table.host.route
     for group in _groups(fn, chunk, opt.k, table.n_dev, min_len=opt.k):
-        mark("start")
-        hv = _extract_group(group[table.slot0:], table.mesh, opt.k, mark)
-        mark("extract")
-        recv, meta = route(hv, table.mesh)
-        ranks = (_serial_ranks(meta, table.mesh, group_lanes // table.n_dev)
-                 if exact else [None] * table.n_dev)
-        mark("route")
-        for shard, h, rank in zip(table.shards, recv, ranks):
-            if h.numel():
-                shard.fold_hashes(h, torch.ones_like(h, dtype=torch.bool),
-                                  create, rank, group_lanes)
-        mark("fold")
+        hv = _extract_group(group[table.slot0:], table.mesh, opt.k, hook)
+        with spans.span("mesh.route", hook):
+            recv, meta = route(hv, table.mesh)
+            ranks = (_serial_ranks(meta, table.mesh,
+                                   group_lanes // table.n_dev)
+                     if exact else [None] * table.n_dev)
+        with spans.span("mesh.fold", hook):
+            for shard, h, rank in zip(table.shards, recv, ranks):
+                if h.numel():
+                    shard.fold_hashes(h, torch.ones_like(h, dtype=torch.bool),
+                                      create, rank, group_lanes)
     table.flush()
     return table
 
@@ -393,7 +394,7 @@ def mesh_routed_groups(fn, mtable, chunk, psort=None, hook=None):
     (`countstep.lookup_keys`, through the sort kernel under psort, by
     default `countstep.psort_enabled()`).  `hook`, when given, is called
     with "start", "h2d", "extract", "route", "lookup" and "back" as each
-    group's phases are queued."""
+    group's phases (the spans `mesh.*`) are queued."""
     if mtable.host is not None:
         raise NotImplementedError("lookups on a table counted over several "
                                   "processes (yak_tpu's multihost layer "
@@ -401,22 +402,19 @@ def mesh_routed_groups(fn, mtable, chunk, psort=None, hook=None):
     k = mtable.k
     if psort is None:
         psort = countstep.psort_enabled()
-    mark = hook or (lambda _name: None)
     mtable.flush()
     for group in _groups(fn, chunk, k, mtable.n_dev, skip_empty=True):
-        mark("start")
-        hv = _extract_group(group, mtable.mesh, k, mark)
-        mark("extract")
-        recv, meta = _route(hv, mtable.mesh)
-        mark("route")
-        vals = [countstep.lookup_keys(h, torch.ones_like(h, dtype=torch.bool),
-                                      s.keys, s.cnt, s.size, s.wide, psort)
-                if h.numel() else h.to(torch.int32)
+        hv = _extract_group(group, mtable.mesh, k, hook)
+        with spans.span("mesh.route", hook):
+            recv, meta = _route(hv, mtable.mesh)
+        with spans.span("mesh.lookup", hook):
+            vals = [countstep.lookup_keys(
+                h, torch.ones_like(h, dtype=torch.bool), s.keys, s.cnt,
+                s.size, s.wide, psort) if h.numel() else h.to(torch.int32)
                 for s, h in zip(mtable.shards, recv)]
-        mark("lookup")
-        back = _route_back(vals, meta, mtable.mesh,
-                           [h.numel() for h, _valid in hv])
-        mark("back")
+        with spans.span("mesh.back", hook):
+            back = _route_back(vals, meta, mtable.mesh,
+                               [h.numel() for h, _valid in hv])
         yield group, back, [valid for _h, valid in hv]
 
 

@@ -63,7 +63,7 @@ import sys
 import numpy as np
 import torch
 
-from yak_tpu_torch import YAK_LOAD_ALL, YAK_MAX_COUNT
+from yak_tpu_torch import YAK_LOAD_ALL, YAK_MAX_COUNT, spans
 from yak_tpu_torch.io import yakfmt
 from yak_tpu_torch.io.pack import detect_periodic, pack_planes, pack_planes2
 from yak_tpu_torch.ops import bloom, countstep, merge
@@ -118,7 +118,8 @@ class KmerTable:
     versions.  `phase_hook`, when set, is called with the name of each
     fold phase as it is queued ("start", "h2d", "extract", "sort",
     "gate" on a gated fold, "merge", "finalize"), for per-phase
-    timing.  `bf_exact`: gate through the serial-exact gate (-X).
+    timing; the phases are the spans `table.stage` and `fold.*`
+    (spans.py).  `bf_exact`: gate through the serial-exact gate (-X).
     `shard_shift`: the table is a shard of a mesh of 2^shard_shift
     shards, and its filter that shard's slice."""
 
@@ -168,10 +169,6 @@ class KmerTable:
         self._tot = int(self.size)
         return self._tot
 
-    def _mark(self, name):
-        if self.phase_hook is not None:
-            self.phase_hook(name)
-
     def _ensure_capacity(self, need):
         if need <= self.cap:
             return
@@ -220,12 +217,22 @@ class KmerTable:
         run sees at most log2(G) fold shapes."""
         if not self._pend_codes:
             return
-        self._mark("start")
         group = self._pend_codes
         self._pend_codes = []
         g_full = self._group_g or len(group)
         g = min(g_full, 1 << max(len(group) - 1, 0).bit_length())
         L = group[0][0].shape[0]
+        with spans.span("table.stage", self.phase_hook, opens="start",
+                        mark="h2d"):
+            carg = self._stage(group, g, L)
+        self._queue_fold(carg, g * max(L - self.k + 1, 1),
+                         self.bf is not None and self._pend_create)
+
+    def _stage(self, group, g, L):
+        """The group's planes joined on the host, padded to g chunks, and
+        uploaded (the span `table.upload`: pageable copies, each of which
+        waits for the work queued before it, and the 3-plane path's
+        joins between them): `countstep.extract`'s argument."""
         n_pad = g - len(group)
         pw = [e[4] for e in group]
         periodic = (all(p is not None for p in pw)
@@ -238,22 +245,20 @@ class KmerTable:
             zw = np.zeros((n_pad, group[0][1].shape[1]), np.uint32)
             plo = np.concatenate([e[1] for e in group] + [zw])
             phi = np.concatenate([e[2] for e in group] + [zw])
-            carg = ("periodic", (u32_to_torch(plo, dev),
-                                 u32_to_torch(phi, dev),
-                                 torch.from_numpy(wvec).to(dev)), L, R)
-        else:
-            pl3s = [pack_planes(e[0]) if e[3] is None
-                    else (e[1], e[2], e[3]) for e in group]
-            W = pl3s[0][0].shape[1]
-            padw = np.zeros((n_pad, W), np.uint32)
-            padn = np.full((n_pad, W), 0xFFFFFFFF, np.uint32)
-            carg = ("planes", tuple(
+            with spans.span("table.upload"):
+                return ("periodic", (u32_to_torch(plo, dev),
+                                     u32_to_torch(phi, dev),
+                                     torch.from_numpy(wvec).to(dev)), L, R)
+        pl3s = [pack_planes(e[0]) if e[3] is None
+                else (e[1], e[2], e[3]) for e in group]
+        W = pl3s[0][0].shape[1]
+        padw = np.zeros((n_pad, W), np.uint32)
+        padn = np.full((n_pad, W), 0xFFFFFFFF, np.uint32)
+        with spans.span("table.upload"):
+            return ("planes", tuple(
                 u32_to_torch(np.concatenate(
                     [p[j] for p in pl3s] + [padn if j == 2 else padw]), dev)
                 for j in range(3)), L)
-        self._mark("h2d")
-        self._queue_fold(carg, g * max(L - self.k + 1, 1),
-                         self.bf is not None and self._pend_create)
 
     def fold_hashes(self, h, valid, create_new=True, rank=None,
                     rank_bound=None):
@@ -276,10 +281,11 @@ class KmerTable:
         if self._pend_codes or self._pend or self._pend_create != create_new:
             self.flush()
             self._pend_create = create_new
-        self._mark("start")
-        carg = ("hashes", (h, valid))
-        if rank is not None:
-            carg += ((rank, rank_bound),)
+        with spans.span("table.stage", self.phase_hook, opens="start",
+                        mark=None):
+            carg = ("hashes", (h, valid))
+            if rank is not None:
+                carg += ((rank, rank_bound),)
         self._queue_fold(carg, h.numel(),
                          self.bf is not None and create_new)
 
@@ -337,15 +343,17 @@ class KmerTable:
             return
         prev, carg, ovf, undo, engine = self._last_step
         self._last_step = None
-        while bool(ovf):
-            keys, cnt, size = prev
-            prev = st.grow(keys, cnt, size, 2 * keys.shape[0])
-            # self.cap must reflect the grown table before the replay
-            self.keys, self.cnt, self.size = prev
-            gated = undo is not None
-            if gated:
-                self.bf = bloom.rollback(self.bf, undo)
-            ovf, undo = self._run_step(carg, prev, gated, engine)
+        with spans.span("table.settle"):
+            while bool(ovf):
+                spans.count("table.replays")
+                keys, cnt, size = prev
+                prev = st.grow(keys, cnt, size, 2 * keys.shape[0])
+                # self.cap must reflect the grown table before the replay
+                self.keys, self.cnt, self.size = prev
+                gated = undo is not None
+                if gated:
+                    self.bf = bloom.rollback(self.bf, undo)
+                ovf, undo = self._run_step(carg, prev, gated, engine)
 
     def insert_hashes(self, h, valid, create_new=True):
         """Count a raw (duplicate-bearing) int64 hash batch into the table
@@ -454,10 +462,11 @@ class KmerTable:
         """Keep entries with count in [cmin, cmax] (yak_ch_shrink)."""
         cmax = cmax if cmin <= cmax <= YAK_MAX_COUNT else YAK_MAX_COUNT
         self.flush()
-        keep = (self.cnt >= cmin) & (self.cnt <= cmax)
-        self.keys, self.cnt, self.size = st.compact_where(
-            self.keys, self.cnt, self.size, keep)
-        self._tot = int(self.size)
+        with spans.span("table.shrink"):
+            keep = (self.cnt >= cmin) & (self.cnt <= cmax)
+            self.keys, self.cnt, self.size = st.compact_where(
+                self.keys, self.cnt, self.size, keep)
+            self._tot = int(self.size)
 
     def _check_same(self, other, what):
         if (self.k, self.pre, self.device) != (other.k, other.pre,

@@ -88,7 +88,9 @@ def maybe_profile(device=None):
     (yak_tpu/utils.py:38-64, the JAX profiler there), host activity and,
     on a CUDA `device`, the card's, written as one Chrome trace
     (`trace-<pid>.json`, for chrome://tracing or Perfetto) into <dir>
-    when the block ends, however it ends.  A no-op when unset."""
+    when the block ends, however it ends; the program's spans
+    (`spans.py`, ranges `yak.*`) are on while it records.  A no-op when
+    unset."""
     out = os.environ.get("YAK_TPU_PROFILE")
     if not out:
         yield
