@@ -9,8 +9,8 @@ Phases, in order; any failure exits non-zero:
   1. the card's name and power limit (nvidia-smi), torch and CUDA
      versions;
   2. build the hand-written kernels (csrc/merge_reduce.cu, which holds
-     the merge-reduce and merge-JOIN entry points, csrc/compact.cu and
-     csrc/sort.cu) with one nvcc each, and the host library
+     the merge-reduce and merge-JOIN entry points, csrc/compact.cu,
+     csrc/sort.cu and csrc/scan.cu) with one nvcc each, and the host library
      (native/fastx.cpp and native/khlayout.cpp) with g++, side by side,
      into build/yak_tpu_torch/; the host library must load;
   3. kernel vs its plain torch version on the card: the kernel's tile
@@ -262,7 +262,16 @@ Phases, in order; any failure exits non-zero:
      call of the compact engine and every JOIN call of QV_SEG is held
      bit for bit against its plain version, and one of each is timed;
      each run logs its device ms per fold or chunk (CUDA events) and
-     its wall beside the default engine's of the same run.
+     its wall beside the default engine's of the same run;
+ 37. the last-set-lane kernel (csrc/scan.cu) vs torch.cummax
+     (scan.last_set_lane_plain) on the card: phase 10's -b37 literal
+     two-pass again (its gates), every call of its default gate posts
+     (`_runs`' run heads over a fold's B lanes, `bloom_insert`'s sparse
+     tail's word-run heads over its n_hashes x B probe lanes) held bit
+     for bit against cummax, one launch a call; then masks of the
+     benchmark's -b37 count's sizes (a fold's B = 16,777,156 lanes and
+     its 67,108,624 probe lanes, at the densities its folds give:
+     0.6135 and 0.5662) checked and timed.
 
 Every path that reads a sequence file takes the native reader, as
 `yak_tpu` does; phases 3, 4 and 11 fold chunks packed by this script.
@@ -299,8 +308,12 @@ the scatter by slot), timed at a shard's call, and of phases 33-34,
 whose weighted merges and compactions have their own entries
 (`merge_reduce_weighted_mesh`, `compact_mesh`), in place of yak_tpu's
 shard_mapped count step with its bloom_cfg and lookup steps; phase
-35's workers' launches, summed, are their `multihost` path) and the
-contract line
+35's workers' launches, summed, are their `multihost` path; the
+last-set-lane kernel's entry (phase 37) times the sparse tail's mask at
+the top level and both masks under `shapes`, with `plain_ms` the
+library-only version that the plain paths take on the card
+(sorttable.last_set_lane, a scatter) and `library_ms` torch.cummax) and
+the contract line
 {"ok": true, "device": {...}}.  Imports no JAX.
 """
 
@@ -355,6 +368,11 @@ KERNELS = {
         "replaces_also": [f"yak_tpu/ops/pallas_sort.py:{line}"
                           for line in (167, 204, 107, 134)]}
        for inst in SORT_INSTANCES},
+    "last_set_lane": {"name": "last_set_lane", "route": "cuda",
+                      "source": "yak_tpu_torch/csrc/scan.cu",
+                      "replaces": "jax.lax.cummax (XLA, no TPU kernel): "
+                                  "yak_tpu/ops/countstep.py:464, "
+                                  "yak_tpu/ops/bloom.py:314"},
 }
 QV_SEEDS = {101: "70a2f8de2e2c", 102: "72893d32c67e"}   # bench.py:250
 QV_SUM = 48_000_000                                    # bench.py:251
@@ -1277,20 +1295,21 @@ def lookup_cli_check():
 def reset_counts():
     """Every kernel launch count to 0 (the sort kernel's by
     instantiation; its total stays, for the check after phase 14)."""
-    from yak_tpu_torch.ops import compact, merge, sort
+    from yak_tpu_torch.ops import compact, merge, scan, sort
 
     merge.merge_reduce.launches = 0
     for mode in merge.merge_reduce.mode_launches:
         merge.merge_reduce.mode_launches[mode] = 0
     merge.merge_join.launches = 0
     compact.compact.launches = 0
+    scan.last_set_lane.launches = 0
     for inst in sort.sort.mode_launches:
         sort.sort.mode_launches[inst] = 0
 
 
 def read_counts():
     """The launch counts by kernels-line entry."""
-    from yak_tpu_torch.ops import compact, merge, sort
+    from yak_tpu_torch.ops import compact, merge, scan, sort
 
     modes = merge.merge_reduce.mode_launches
     return {"merge_reduce": modes["count"],
@@ -1298,6 +1317,7 @@ def read_counts():
             "merge_reduce_wide": modes["wide"],
             "merge_join": merge.merge_join.launches,
             "compact": compact.compact.launches,
+            "last_set_lane": scan.last_set_lane.launches,
             **{f"sort_{inst}": n
                for inst, n in sort.sort.mode_launches.items()}}
 
@@ -3516,7 +3536,7 @@ def mh_worker(coord, rank, fa, link, md5s):
     from yak_tpu_torch.ops import cuda_build
     from yak_tpu_torch.parallel import multihost as mh
 
-    built = cuda_build.load_all(["merge_reduce", "compact", "sort"])
+    built = cuda_build.load_all(["merge_reduce", "compact", "sort", "scan"])
     if any(secs for _lib, secs in built.values()):
         raise AssertionError("a worker built a kernel phase 2 had built")
     dev = torch.device("cuda")
@@ -3991,6 +4011,74 @@ def knob_phase(dev, card, chunks, count_items, ch_texts, lookup_paths,
         raise AssertionError("a knob outlived phase 36")
 
 
+# -- phase 37 -----------------------------------------------------------
+
+# the benchmark's -b37 count (sr-k31.count-b37): a pass-1 fold's B lanes
+# and n_hashes x B probe lanes, and the share of each mask that is set
+SCAN_SHAPES = {"runs": (16_777_156, 0.6135),
+               "sparse_tail": (67_108_624, 0.5662)}
+
+
+def check_scan(mask, label):
+    """The kernel == torch.cummax of the set lanes on one mask."""
+    from yak_tpu_torch.ops import scan
+
+    got, want = scan.last_set_lane(mask), scan.last_set_lane_plain(mask)
+    if got.dtype != torch.int32 or not torch.equal(got, want):
+        bad = int((got != want).sum())
+        raise AssertionError(f"{label}: last_set_lane != cummax at {bad} of "
+                             f"{mask.numel()} lanes")
+
+
+def scan_phase(dev, card, bloom_dir, results, by_path):
+    """Phase 37: phase 10's -b37 literal again with every call of its
+    gate posts' scan held against cummax, then the benchmark's shapes
+    checked and timed (kernel, the scatter, cummax)."""
+    from yak_tpu_torch.ops import scan
+    from yak_tpu_torch.ops import sorttable as st
+
+    files = [os.path.join(bloom_dir, name) for name in
+             ("bloom_reads.fa", "bloom_reads_link.fa")]
+    name = "b37 literal, scan checked"
+    reset_counts()
+    with captured("scan", "last_set_lane") as runs, \
+            captured("scan", "last_set_lane",
+                     within="yak_tpu_torch.ops.bloom") as tails:
+        t0 = time.perf_counter()
+        table = run_bloom(files, 37, dev)
+        wall = time.perf_counter() - t0
+    by_path[name] = counts = read_counts()
+    check_gates(table, f"{name} -b37", BLOOM_DISTINCT, BLOOM_HIST)
+    del table
+    check_launched(counts, ("last_set_lane",), name)
+    if counts["last_set_lane"] != len(runs) + len(tails):
+        raise AssertionError(
+            f"{name}: {counts['last_set_lane']} launches for "
+            f"{len(runs) + len(tails)} calls")
+    for site, calls in (("runs", runs), ("sparse tail", tails)):
+        if not calls:
+            raise AssertionError(f"{name}: no {site} call")
+        for i, (args, _kw) in enumerate(calls):
+            check_scan(args[0], f"{name}, {site} call {i}")
+        lanes = sorted({args[0].numel() for args, _kw in calls})
+        log(f"  {name}: {len(calls)} {site} calls equal cummax ({lanes[0]}-"
+            f"{lanes[-1]} lanes); wall {wall:.4f} s [{card}]")
+    del runs, tails
+    shapes = {}
+    for site, (n, density) in SCAN_SHAPES.items():
+        g = torch.Generator(device=dev).manual_seed(n)
+        mask = torch.rand(n, generator=g, device=dev) < density
+        mask[0] = False
+        check_scan(mask, f"{site} shape")
+        shapes[site] = dict(time_kernel(
+            scan.last_set_lane, st.last_set_lane, (mask,),
+            5 * n / HBM_BYTES_PER_S * 1e3,
+            lambda mask=mask: scan.last_set_lane_plain(mask),
+            f"last_set_lane, {site} (n {n}, density {density})", card), n=n)
+        del mask
+    results["last_set_lane"] = dict(shapes["sparse_tail"], shapes=shapes)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on the card",
@@ -4024,7 +4112,8 @@ def main():
     t0 = time.perf_counter()
     with ThreadPoolExecutor(1) as pool:
         host_lib = pool.submit(native.build)
-        built = cuda_build.load_all(["merge_reduce", "compact", "sort"])
+        built = cuda_build.load_all(["merge_reduce", "compact", "sort",
+                                     "scan"])
         log(f"  host library {host_lib.result().name} (native/fastx.cpp, "
             f"native/khlayout.cpp)")
     if not native.available():
@@ -4136,6 +4225,8 @@ def main():
     phase("36. the other engines and knobs at real size")
     knob_phase(dev, card, chunks, count_items, ch_texts, lookup_paths,
                bloom_dir, results, by_path)
+    phase("37. the last-set-lane kernel vs torch.cummax on the card")
+    scan_phase(dev, card, bloom_dir, results, by_path)
     torch.cuda.synchronize()
 
     print(json.dumps({"kernels": [

@@ -53,6 +53,7 @@ word) for the lanes an in-place update touched; `rollback` applies it.
 import torch
 
 from yak_tpu_torch import YAK_BLK_SHIFT
+from yak_tpu_torch.ops import scan
 from yak_tpu_torch.ops.keys import INT64_MAX, i32_bits, srl
 from yak_tpu_torch.ops.sorttable import last_set_lane
 
@@ -161,7 +162,7 @@ def _shift_in(x, fill):
 
 
 def bloom_insert(bf, h, active, rank=None, *, pre, n_shift, n_hashes,
-                 rank_bound=0, shard_shift=0):
+                 rank_bound=0, shard_shift=0, kernel=False):
     """Query-and-set the active lanes of `h` (unique hashes).
 
     Returns (bf', n_before, undo): n_before[i] is the number of probed
@@ -181,7 +182,12 @@ def bloom_insert(bf, h, active, rank=None, *, pre, n_shift, n_hashes,
     of 2^(n_shift - shard_shift) bits, which holds the filters of its
     own `pre`-bit shards in order, each bit for bit the same as in the
     one-device filter (the per-shard filters of htab.c:23-27 dealt to
-    the mesh's shards, yak_tpu/ops/bloom.py:139-160)."""
+    the mesh's shards, yak_tpu/ops/bloom.py:139-160).
+
+    kernel: the sparse update finds its word runs' heads by the scan
+    kernel (`scan.last_set_lane`), as the default engine's gate posts
+    ask; else by library calls alone (`sorttable.last_set_lane`), as the
+    sort-merge engines' gate does."""
     base, zs = probe_geom(h, pre=pre, n_shift=n_shift, n_hashes=n_hashes,
                           shard_shift=shard_shift)
     if rank is not None and exact_gate_fits(n_shift, n_hashes, rank_bound,
@@ -204,12 +210,13 @@ def bloom_insert(bf, h, active, rank=None, *, pre, n_shift, n_hashes,
         mask = csum0[bounds[1:]] - csum0[bounds[:-1]]
         return bf | i32_bits(mask), n_before, bf
     # sparse: one write per touched word, at the last lane of its run
-    lane = torch.arange(p.shape[0], dtype=torch.int64, device=bf.device)
     word_start = valid & (w != _shift_in(w, -1))
     nxt = torch.cat([w[1:], w.new_full((1,), nwords)])
     word_end = valid & (w != nxt)
-    start = torch.cummax(torch.where(word_start, lane, 0), 0).values
-    run_mask = i32_bits(csum0[lane + 1] - csum0[start])
+    # each lane's word run's first lane (lane 0 where no run has begun)
+    heads = scan.last_set_lane if kernel else last_set_lane
+    start = heads(word_start).clamp_(min=0)
+    run_mask = i32_bits(csum0[1:] - csum0.index_select(0, start))
     idx = torch.where(word_end, w, 0)
     old = bf[idx]
     # the run's bits not yet set: adding them is OR-ing them

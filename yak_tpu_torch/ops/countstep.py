@@ -77,7 +77,7 @@ import os
 import torch
 
 from yak_tpu_torch import YAK_MAX_COUNT, spans
-from yak_tpu_torch.ops import bloom, compact, merge, sort
+from yak_tpu_torch.ops import bloom, compact, merge, scan, sort
 from yak_tpu_torch.ops import sorttable as st
 from yak_tpu_torch.ops.keys import (INT64_MAX, U32_MASK, decode_wide,
                                     encode_wide, i32_bits)
@@ -368,15 +368,16 @@ def finalize(okeys, ocnt, new_size, n_new, cap):
 
 def _runs(bkeys):
     """Key runs of a sorted batch: (ends bool [B], mult int32 [B]): the
-    last lane of each valid run, and at that lane the run's length."""
+    last lane of each valid run, and at that lane the run's length.  The
+    gate posts run on the kernel engines alone, so the run heads are the
+    scan kernel's (`scan.last_set_lane`)."""
     n = bkeys.shape[0]
     newkey = torch.ones(n, dtype=torch.bool, device=bkeys.device)
     newkey[1:] = bkeys[1:] != bkeys[:-1]
     ends = (torch.cat([newkey[1:], newkey.new_ones(1)])
             & (bkeys != INT64_MAX))
     lane = torch.arange(n, dtype=torch.int32, device=bkeys.device)
-    start = torch.cummax(torch.where(newkey, lane, 0), 0).values
-    return ends, lane - start + 1
+    return ends, lane - scan.last_set_lane(newkey) + 1
 
 
 def _gate_weights(ends, mult, n_before, bf_n_hash):
@@ -397,7 +398,7 @@ def bloom_gate_post(bkeys, bf, pre, bf_shift, bf_n_hash, wide=False,
     h = decode_wide(bkeys) if wide else bkeys
     bf2, n_before, undo = bloom.bloom_insert(
         bf, h, ends, pre=pre, n_shift=bf_shift, n_hashes=bf_n_hash,
-        shard_shift=shard_shift)
+        shard_shift=shard_shift, kernel=True)
     return _gate_weights(ends, mult, n_before, bf_n_hash), bf2, undo
 
 
@@ -425,7 +426,7 @@ def bloom_gate_exact_post(bkeys, perm, bf, pre, bf_shift, bf_n_hash,
     h = decode_wide(bkeys) if wide else bkeys
     bf2, n_before, undo = bloom.bloom_insert(
         bf, h, ends, rank, pre=pre, n_shift=bf_shift, n_hashes=bf_n_hash,
-        rank_bound=rank_bound, shard_shift=shard_shift)
+        rank_bound=rank_bound, shard_shift=shard_shift, kernel=True)
     return _gate_weights(ends, mult, n_before, bf_n_hash), bf2, undo
 
 

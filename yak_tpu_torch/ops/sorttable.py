@@ -180,7 +180,9 @@ def last_set_lane(mask):
     number (the other lanes write to 1024 spare slots that nothing
     reads), and each lane reads back the lane of its number.  On the CPU,
     whose cummax is one linear pass (2-3x faster than the scatter at
-    1.2 M and 29 M lanes), it is torch.cummax."""
+    1.2 M and 29 M lanes), it is torch.cummax.  Library calls alone: the
+    default engine's gate posts take the hand-written kernel
+    (`ops/scan.last_set_lane`) instead."""
     if mask.device.type == "cpu":
         lane = torch.arange(mask.numel(), dtype=torch.int32)
         return torch.cummax(torch.where(mask, lane, -1), 0).values
